@@ -1,0 +1,73 @@
+"""Wrapper of the Hopper hub-label row-join kernel (``csrc/label_join.cu``).
+
+Replaces the TPU kernel ``repro/kernels/label_join.py:_join_kernel``: the
+[B, L] row join ``out[b, i] = vd_s[b, i] + min_{j: hub_t[b, j] ==
+hub_s[b, i]} vd_t[b, j]``, the dense form of the paper's sorted merge-join
+(Eq. 3).  Bound by operations on the H100 (L^2 steps per row); see the
+source note.  Its plain twin is ``ref.label_join_rowmin_ref``;
+``kernels.ops`` picks between them by the device of the tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+
+def _lib():
+    lib = build.load("label_join")
+    fn = lib.label_join_rowmin_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def label_join_rowmin(hub_s: torch.Tensor, vd_s: torch.Tensor,
+                      hub_t: torch.Tensor, vd_t: torch.Tensor
+                      ) -> torch.Tensor:
+    """[B, L] float32 row join through the CUDA kernel (CUDA tensors only).
+
+    Hubs int32, distances float32 (narrower distance dtypes are not taken
+    yet), all [B, L], contiguous, on one CUDA device.  Launches on the
+    current stream without synchronising; raises if the launch fails.
+    """
+    dev = hub_s.device
+    if dev.type != "cuda":
+        raise ValueError(f"label_join_rowmin launches on CUDA tensors only, "
+                         f"got {dev}")
+    shape = hub_s.shape
+    for name, x, dtype in (("hub_s", hub_s, torch.int32),
+                           ("vd_s", vd_s, torch.float32),
+                           ("hub_t", hub_t, torch.int32),
+                           ("vd_t", vd_t, torch.float32)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.dim() != 2 or x.shape != shape:
+            raise ValueError(f"{name} must be [B, L] = {tuple(shape)}, "
+                             f"got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, L = shape
+    out = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B == 0 or L == 0:
+        return out
+    launch = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(hub_s.data_ptr(), vd_s.data_ptr(), hub_t.data_ptr(),
+                     vd_t.data_ptr(), out.data_ptr(), B, L, stream)
+    if err:
+        raise RuntimeError(f"label_join_rowmin launch failed: cudaError {err}")
+    label_join_rowmin.launches += 1
+    return out
+
+
+label_join_rowmin.launches = 0
+

@@ -1,0 +1,173 @@
+"""Batched request serving — the paper's online phase as a serving loop.
+
+``PathServer`` fronts a pluggable :class:`~repro_torch.serving.query_engine.
+QueryEngine`: requests are routed by dispatch bucket (max of the two
+endpoint-region buckets under the width-bucketed layout, DESIGN.md §4),
+each bucket group is cut into fixed-size batches (zero-padding the tail
+keeps the kernels' shapes steady), answered, and scattered back into
+request order.  Per-bucket latency/occupancy counters make the routing
+observable.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+
+from repro_torch.core.packed import empty_results
+from repro_torch.core.query import path_length, unwind_path
+from repro_torch.serving.query_engine import HostEngine, QueryEngine, make_engine
+
+
+@dataclasses.dataclass
+class BucketStats:
+    """Per-dispatch-bucket serving counters (width = label slots paid)."""
+
+    width: int = 0
+    batches: int = 0
+    queries: int = 0
+    seconds: float = 0.0
+    slots: int = 0          # batch slots dispatched (incl. tail padding)
+
+    @property
+    def occupancy(self) -> float:
+        """Real queries / dispatched slots (1.0 = no tail padding waste)."""
+        return self.queries / max(1, self.slots)
+
+    @property
+    def us_per_query(self) -> float:
+        return 1e6 * self.seconds / max(1, self.queries)
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Server-level counters."""
+
+    batches: int = 0
+    queries: int = 0
+    seconds: float = 0.0
+    per_bucket: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def us_per_query(self) -> float:
+        return 1e6 * self.seconds / max(1, self.queries)
+
+    @property
+    def qps(self) -> float:
+        return self.queries / max(1e-9, self.seconds)
+
+
+class PathServer:
+    """Fixed-batch ESPP query server over a pluggable query engine.
+
+    ``index`` may be a ready-made :class:`QueryEngine`, a packed
+    BucketedIndex, or a host EHLIndex (packed onto ``device``); the latter
+    two are wrapped in a ``backend`` engine (``make_engine``).
+    """
+
+    def __init__(self, index, batch_size: int = 256, backend: str = "cuda",
+                 device="cuda"):
+        if isinstance(index, QueryEngine):
+            self.engine = index
+        else:
+            self.engine = make_engine(index, backend=backend, device=device)
+        self.batch_size = batch_size
+        self.stats = ServeStats()
+
+    def warmup(self, paths: bool = False):
+        """Run every bucket width once at the serving batch shape (and, with
+        ``paths=True``, the argmin path behind ``query_paths``), so the first
+        live request never pays a kernel build or load."""
+        self.engine.warmup(self.batch_size, want_argmin=paths)
+
+    def _bucket_stats(self, bucket: int) -> BucketStats:
+        if bucket not in self.stats.per_bucket:
+            self.stats.per_bucket[bucket] = BucketStats(
+                width=self.engine.bucket_width(bucket))
+        return self.stats.per_bucket[bucket]
+
+    def _dispatch(self, s, t, want_argmin: bool):
+        """Bucket-route N requests through fixed-shape batches; scatter back.
+
+        Sort by dispatch bucket, answer each bucket's sub-batches at that
+        bucket's width, write results back through the permutation.
+        Returns a list of [N]-arrays (1 for distances, 5 for argmin).
+        """
+        eng = self.engine
+        n = len(s)
+        bs = self.batch_size
+        pad = eng.static_shapes
+        buckets = eng.buckets_of(s, t) if n else np.zeros(0, np.int32)
+        outs = empty_results(n, want_argmin)
+        for k in np.unique(buckets):
+            idxs = np.nonzero(buckets == k)[0]
+            bstats = self._bucket_stats(int(k))
+            tb0 = time.perf_counter()
+            for lo in range(0, len(idxs), bs):
+                sel = idxs[lo:lo + bs]
+                # device engines get fixed [bs, 2] shapes; the host oracle
+                # takes the ragged tail
+                rows = bs if pad else len(sel)
+                sb = np.zeros((rows, 2), np.float32)
+                tb = np.zeros((rows, 2), np.float32)
+                sb[:len(sel)] = s[sel]
+                tb[:len(sel)] = t[sel]
+                if want_argmin:
+                    res = eng.batch_argmin(sb, tb, bucket=int(k))
+                else:
+                    res = (eng.batch(sb, tb, bucket=int(k)),)
+                for o, r in zip(outs, res):
+                    o[sel] = r[:len(sel)]
+                bstats.batches += 1
+                bstats.slots += rows
+                self.stats.batches += 1
+            bstats.queries += len(idxs)
+            bstats.seconds += time.perf_counter() - tb0
+        return outs
+
+    def query(self, s: np.ndarray, t: np.ndarray) -> np.ndarray:
+        """Answer N distance requests (any N), bucket-routed."""
+        t0 = time.perf_counter()
+        out = self._dispatch(np.asarray(s, np.float32),
+                             np.asarray(t, np.float32), want_argmin=False)[0]
+        self.stats.seconds += time.perf_counter() - t0
+        self.stats.queries += len(out)
+        return out
+
+    def query_paths(self, s: np.ndarray, t: np.ndarray, host_index=None
+                    ) -> tuple[np.ndarray, list]:
+        """Distances + optimal polylines for N requests.
+
+        The batched argmin engine identifies each query's winning
+        (via_s, hub, via_t) triple; unwinding follows the hub labels'
+        next-hop pointers, which live host-side — pass the host
+        ``EHLIndex`` (defaults to a HostEngine's own index).
+        """
+        s = np.asarray(s, np.float32)
+        t = np.asarray(t, np.float32)
+        t0 = time.perf_counter()
+        if isinstance(self.engine, HostEngine):
+            paths = self.engine.paths(s, t)
+            d = np.array([path_length(p) for p in paths], dtype=np.float32)
+        else:
+            if host_index is None:
+                raise ValueError("query_paths on a device engine needs the "
+                                 "host EHLIndex for label unwinding")
+            d, covis, via_s, hub, via_t = self._dispatch(s, t,
+                                                         want_argmin=True)
+            paths = []
+            for i in range(len(s)):
+                if covis[i]:
+                    paths.append([s[i].astype(np.float64),
+                                  t[i].astype(np.float64)])
+                elif not np.isfinite(d[i]):
+                    paths.append([])
+                else:
+                    paths.append(unwind_path(host_index, s[i], t[i],
+                                             int(via_s[i]), int(hub[i]),
+                                             int(via_t[i])))
+        self.stats.seconds += time.perf_counter() - t0
+        self.stats.queries += len(s)
+        return d, paths

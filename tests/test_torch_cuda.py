@@ -1,0 +1,95 @@
+"""Hopper kernels vs their plain twins on the card (``pytest -m cuda``).
+
+Each test asks the ``card`` fixture for the device, and the fixture skips
+when no CUDA device is present, so every worker collects the same tests.
+The kernels must equal their twins bit for bit (``torch.equal``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.compression import compress_to_fraction
+from repro_torch.core.grid import build_ehl
+from repro_torch.core.maps import make_map
+from repro_torch.core.packed import pack_bucketed
+from repro_torch.core.visgraph import build_visgraph
+from repro_torch.core.workload import uniform_queries
+from repro_torch.kernels import ref
+from repro_torch.kernels.label_join import label_join_rowmin
+from repro_torch.kernels.segvis import segvis
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with `pytest -m cuda` on the card)")
+    return torch.device("cuda", 0)
+
+
+def _segs(rng, n, e, card):
+    arrs = [rng.uniform(0, 10, (k, 2)).astype(np.float32)
+            for k in (n, n, e, e, e)]
+    # anchor some segments on edge endpoints: the exact-contact classes
+    m = min(n, e)
+    arrs[1][:m // 2] = arrs[2][:m // 2]
+    return [torch.from_numpy(a).to(card) for a in arrs]
+
+
+@pytest.mark.parametrize("n,e", [(1, 1), (7, 64), (256, 128), (300, 700),
+                                 (32768, 128)])
+def test_segvis_kernel_equals_twin(card, n, e):
+    args = _segs(np.random.default_rng(n + e), n, e, card)
+    got = segvis(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.segvis_ref(*args))
+
+
+@pytest.mark.parametrize("b,l", [(1, 16), (33, 384), (256, 512), (3, 1500)])
+def test_rowmin_kernel_equals_twin(card, b, l):
+    rng = np.random.default_rng(b * 7919 + l)
+    hs = np.sort(rng.integers(0, 64, (b, l)).astype(np.int32), axis=1)
+    ht = np.sort(rng.integers(0, 64, (b, l)).astype(np.int32), axis=1)
+    vs = rng.uniform(0, 100, (b, l)).astype(np.float32)
+    vt = rng.uniform(0, 100, (b, l)).astype(np.float32)
+    vs[rng.random((b, l)) < 0.2] = np.inf
+    vt[rng.random((b, l)) < 0.2] = np.inf
+    args = [torch.from_numpy(a).to(card) for a in (hs, vs, ht, vt)]
+    got = label_join_rowmin(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.label_join_rowmin_ref(*args))
+
+
+def test_wrappers_check_their_inputs(card):
+    x = torch.zeros((4, 2), device=card)
+    with pytest.raises(TypeError):
+        segvis(x.double(), x, x, x)
+    with pytest.raises(ValueError):
+        segvis(x, x, x[:, :1].contiguous(), x)
+    h = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    v = torch.zeros((2, 8), device=card)
+    with pytest.raises(TypeError):
+        label_join_rowmin(h, v.half(), h, v)
+    with pytest.raises(ValueError):
+        label_join_rowmin(h, v, h, v.t())
+
+
+def test_cuda_engine_equals_torch_engine_on_card(card):
+    from repro_torch.serving import CudaEngine, PathServer, TorchEngine
+
+    scene = make_map("rooms-S", seed=1)
+    graph = build_visgraph(scene)
+    idx = build_ehl(scene, cell_size=2.0, graph=graph)
+    compress_to_fraction(idx, 0.2)
+    bx = pack_bucketed(idx, device=card)
+    qs = uniform_queries(scene, graph, 300, seed=5)
+    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    launches = segvis.launches
+    a = PathServer(CudaEngine(bx), batch_size=64)._dispatch(s, t, True)
+    assert segvis.launches > launches
+    b = PathServer(TorchEngine(bx), batch_size=64)._dispatch(s, t, True)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
