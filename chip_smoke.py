@@ -5,16 +5,28 @@
 
 Builds the Hopper kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch twin (``torch.equal``) at every
-shape the main path gives it, then drives the main path: rooms-M (seed 0,
-cell 2.0) compressed to 20% of its label memory, packed into width buckets
-on the card, served by a ``CudaEngine`` behind ``PathServer(batch_size=256)``
-for 2000 uniform queries (seed 33) plus ``query_paths`` on 64 of them.  The
-answers are checked against the twin engine on the card (bit for bit) and
-the float64 host oracle (1e-4).  Prints the card, the build time, per-kernel
-times beside the twins' and the bound, one JSON line of kernel records and,
-last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-exit code is non-zero and the last line is never printed.  Needs one CUDA
-device; exits non-zero without one.
+shape its path gives it, then drives three serving paths, each with the
+launch counts set to 0 just before it and read just after:
+
+* the dense main path: rooms-M (seed 0, cell 2.0) compressed to 20% of its
+  label memory, packed into width buckets on the card (the auto edge-grid
+  policy leaves it dense), served by a ``CudaEngine`` behind
+  ``PathServer(batch_size=256)`` for 2000 uniform queries (seed 33) plus
+  ``query_paths`` on 64 of them (``segvis`` + ``label_join_rowmin``);
+* the edge-grid path at the default policy: rooms-S (seed 0, cell 2.0,
+  budget 0.2), where ``pack_bucketed`` attaches the grid by itself, served
+  the same way (``segvis_tiles`` + ``label_join_rowmin``, no dense
+  ``segvis``);
+* the edge-grid path at the main path's full width: the rooms-M index
+  packed with ``edge_grid=True``, whose answers must equal the dense
+  path's bit for bit (DESIGN.md §10).
+
+The answers are checked against the twin engine on the card (bit for bit)
+and the float64 host oracle (1e-4).  Prints the card, the build time,
+per-kernel times beside the twins' and the bound, one JSON line of kernel
+records and, last, ``{"ok": true, "device": {...}}``.  Any failed check
+raises, so the exit code is non-zero and the last line is never printed.
+Needs one CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -43,6 +55,10 @@ ROWMIN_OPS_PER_PAIR = 3
 # the main path (the defaults of the reference's serving example)
 MAP, MAP_SEED, CELL, BUDGET = "rooms-M", 0, 2.0, 0.2
 BATCH, QUERIES, QUERY_SEED, PATHS, ORACLE = 256, 2000, 33, 64, 256
+# the edge-grid path at the default policy (the auto policy attaches there)
+GRID_MAP, GRID_SEED = "rooms-S", 0
+# segvis_grid's segment chunk: the largest N segvis_tiles is launched at
+TILE_CHUNK = 8192
 
 
 def card_line() -> str:
@@ -118,6 +134,9 @@ def max_abs_err(got, want) -> float:
     return float((got - want)[~same].abs().max())
 
 
+ANSWERS = ("d", "covis", "via_s", "hub", "via_t")
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -156,6 +175,62 @@ def segvis_case_table(rng, dev):
     return cases
 
 
+def tile_inputs(rng, bx, n: int, vertices: np.ndarray, dev):
+    """segvis_tiles operands at the grid path's shapes: main-path-like
+    segments (free point -> graph vertex) and the six [n, S] planes the
+    port's own walk and ELL gather produce for them."""
+    import torch
+
+    from repro_torch.core.edgegrid import gather_edge_tiles
+
+    p, q, ea, eb, ec = segvis_inputs(rng, bx, n, vertices, dev)
+    return (p, q, *gather_edge_tiles(bx.grid, ea, eb, ec, p, q)), \
+        (p, q, ea, eb, ec)
+
+
+def tile_case_table(rng, dev):
+    """Random per-segment tiles with exact contacts: zero-padded slots,
+    degenerate edges, endpoints on slot vertices and open slot edges; S = 1
+    and S not a multiple of 32 included."""
+    import torch
+
+    cases = []
+    for n, s in ((1, 1), (7, 33), (300, 600), (1000, 1), (513, 70)):
+        p = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+        q = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+        a, b, c = (rng.uniform(0, 10, (n, s, 2)).astype(np.float32)
+                   for _ in range(3))
+        pad = rng.random((n, s)) < 0.25
+        a[pad] = b[pad] = c[pad] = 0.0              # zero-padded slots
+        degen = rng.random((n, s)) < 0.1
+        b[degen] = a[degen]                         # degenerate edges
+        rows, k = np.arange(n), rng.integers(0, s, n)
+        on_vertex = rng.random(n) < 0.3
+        q[on_vertex] = a[rows, k][on_vertex]        # ends on a slot vertex
+        on_edge = ~on_vertex & (rng.random(n) < 0.4)
+        q[on_edge] = ((a[rows, k] + b[rows, k]) / 2)[on_edge]
+        planes = [np.ascontiguousarray(x[..., i]) for x in (a, b, c)
+                  for i in (0, 1)]
+        cases.append(tuple(torch.from_numpy(x).to(dev)
+                           for x in [p, q] + planes))
+    return cases
+
+
+def slots_needed(args) -> int:
+    """Slots the OR over each segment's tile must read on these inputs: up
+    to its first blocking slot, or all S where none blocks."""
+    import torch
+
+    from repro_torch.kernels.ref import blocked_pairs
+
+    p, q, *planes = args
+    blk = blocked_pairs(p[:, 0, None], p[:, 1, None], q[:, 0, None],
+                        q[:, 1, None], *planes)
+    s = blk.shape[1]
+    first = torch.argmax(blk.to(torch.uint8), dim=1) + 1
+    return int(torch.where(blk.any(dim=1), first, s).sum())
+
+
 def rowmin_inputs(rng, B: int, L: int, dev, hubs: int = 96):
     """Hub-sorted rows with ties, pads (HUB_PAD, +inf) and invisible vias."""
     import torch
@@ -176,6 +251,122 @@ def rowmin_inputs(rng, B: int, L: int, dev, hubs: int = 96):
     return tuple(torch.from_numpy(x).to(dev) for x in (hs, vs, ht, vt))
 
 
+def drive(srv, s, t, index, kernels: dict, twins) -> dict:
+    """One serving path as a user drives it: warmup (argmin path included),
+    two ``query`` passes, ``query_paths`` on PATHS.  Every launch count and
+    twin call count is set to 0 just before and read just after; the path
+    must launch each of ``kernels`` and call no twin."""
+    import torch
+
+    for k in kernels.values():
+        k.launches = 0
+    for f in twins:
+        f.calls = 0
+
+    def snap(stage):
+        stages.append((stage, {n: k.launches for n, k in kernels.items()}))
+
+    stages: list = []
+    srv.warmup(paths=True)
+    snap("warmup")
+    d_first = srv.query(s, t)
+    snap("pass 1")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = srv.query(s, t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap("pass 2")
+    dp, paths = srv.query_paths(s[:PATHS], t[:PATHS], host_index=index)
+    torch.cuda.synchronize()
+    snap("paths")
+    launches = {n: k.launches for n, k in kernels.items()}
+    calls = {f.__name__: f.calls for f in twins}
+    prev = dict.fromkeys(kernels, 0)
+    for stage, now in stages:
+        print(f"launches: {stage}: " + ", ".join(
+            f"{n} {now[n] - prev[n]}" for n in kernels))
+        prev = now
+    require(all(calls[f] == 0 for f in calls),
+            f"CudaEngine serving ran a twin: {calls}")
+    print(f"serve: {len(s)} queries, batch {srv.batch_size}, second pass "
+          f"{1e6 * wall / len(s):.3f} us/query, {len(s) / wall:.1f} qps "
+          f"(wall {wall:.4f} s)")
+    for k, st in sorted(srv.stats.per_bucket.items()):
+        print(f"  bucket {k}: width {st.width}, batches {st.batches}, "
+              f"queries {st.queries}, occupancy {st.occupancy:.3f}")
+    return dict(d_first=d_first, d=d, dp=dp, paths=paths,
+                launches=launches)
+
+
+def check_answers(srv, twin_srv, run: dict, s, t, index, qs):
+    """The served answers against the twin engine on the card (all five
+    argmin outputs, bit for bit), the float64 host oracle (1e-4, equal
+    reachability) and the unwound path lengths.  Returns the argmin
+    outputs."""
+    from repro_torch.core import path_length
+    from repro_torch.core.query import query as host_query
+
+    d, dp, paths = run["d"], run["dp"], run["paths"]
+    require(np.array_equal(d, run["d_first"]), "two passes disagree")
+    require(np.array_equal(d, twin_srv.query(s, t)),
+            "CudaEngine d != TorchEngine d")
+    # the served argmin path (what query_paths unwinds), all queries
+    got = srv._dispatch(s, t, want_argmin=True)
+    want = twin_srv._dispatch(s, t, want_argmin=True)
+    for name, a, b in zip(ANSWERS, got, want):
+        require(np.array_equal(a, b),
+                f"CudaEngine vs TorchEngine argmin output {name}")
+    require(np.array_equal(got[0], d), "argmin d != served d")
+    n_or = ORACLE
+    truth = np.array([host_query(index, si, ti, want_path=False)[0]
+                      for si, ti in zip(qs.s[:n_or], qs.t[:n_or])])
+    require(np.array_equal(np.isfinite(d[:n_or]), np.isfinite(truth)),
+            "reachability differs from the float64 oracle")
+    fin = np.isfinite(truth)
+    oracle_err = float(np.max(np.abs(d[:n_or][fin] - truth[fin])
+                              / np.maximum(1.0, truth[fin]), initial=0.0))
+    require(np.allclose(d[:n_or][fin], truth[fin], rtol=1e-4, atol=1e-4),
+            f"distance vs float64 oracle: max rel err {oracle_err}")
+    path_err = max((abs(path_length(p) - x) / max(1.0, x)
+                    for p, x in zip(paths, dp) if np.isfinite(x)),
+                   default=0.0)
+    require(path_err <= 1e-4, f"max |path_length - d| / max(1, d) = {path_err}")
+    require(np.array_equal(dp, d[:PATHS]), "query_paths d != query d")
+    print(f"check: CudaEngine == TorchEngine on all 5 outputs ({len(s)} "
+          f"queries); vs float64 oracle on {n_or}: reachability equal, "
+          f"max rel err {oracle_err:.3e}; paths: max |len - d| / max(1, d) "
+          f"{path_err:.3e}; reachable {int(np.isfinite(d).sum())}/{len(d)}")
+    return got
+
+
+def spread_and_profile(srv, s, t) -> None:
+    """Five more passes (us/query min / median / max), then one pass under
+    the profiler: wall, device kernel time, idle share, top device ops."""
+    import torch
+
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        srv.query(s, t)
+        torch.cuda.synchronize()
+        reps.append(1e6 * (time.perf_counter() - t0) / len(s))
+    print(f"spread: 5 more passes, us/query min {min(reps):.3f} median "
+          f"{float(np.median(reps)):.3f} max {max(reps):.3f}")
+    with profiler() as prof:
+        t0 = time.perf_counter()
+        srv.query(s, t)
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    kern = device_times(prof)
+    busy = sum(us for _, us in kern.values()) / 1e3
+    print(f"profile: one {len(s)}-query pass under the profiler: wall "
+          f"{1e3 * wall_p:.3f} ms, device kernels {busy:.3f} ms, idle share "
+          f"{1 - busy / (1e3 * wall_p):.4f}")
+    for name, (count, us) in sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {us / 1e3:9.4f} ms  {count:5d}x  {name[:90]}")
+
+
 def main() -> None:
     import torch
 
@@ -185,16 +376,17 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import (build_ehl, build_visgraph,
                                   compress_to_fraction, make_map,
-                                  pack_bucketed, path_length,
-                                  uniform_queries)
-    from repro_torch.core.query import query as host_query
+                                  pack_bucketed, uniform_queries)
+    from repro_torch.core.edgegrid import gather_edge_tiles
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.label_join import label_join_rowmin
     from repro_torch.kernels.segvis import segvis
+    from repro_torch.kernels.segvis_tiles import segvis_tiles
     from repro_torch.serving import CudaEngine, PathServer, TorchEngine
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    twins = (ref.segvis_ref, ref.segvis_tiles_ref, ref.label_join_rowmin_ref)
 
     # -- 1. card and build -------------------------------------------------
     card = card_line()
@@ -208,23 +400,47 @@ def main() -> None:
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # -- 2. host index of the main path's map ----------------------------------
-    t0 = time.perf_counter()
-    scene = make_map(MAP, seed=MAP_SEED)
-    graph = build_visgraph(scene)
-    index = build_ehl(scene, cell_size=CELL, graph=graph)
-    t1 = time.perf_counter()
-    compress_to_fraction(index, BUDGET)
+    # -- 2. host indexes: the main path's map and the grid path's map --------
+    def host_index(name, seed):
+        t0 = time.perf_counter()
+        scene = make_map(name, seed=seed)
+        graph = build_visgraph(scene)
+        index = build_ehl(scene, cell_size=CELL, graph=graph)
+        t1 = time.perf_counter()
+        compress_to_fraction(index, BUDGET)
+        return scene, graph, index, t1 - t0, time.perf_counter() - t1
+
+    def describe(name, bx, built, packed):
+        g = bx.grid
+        grid = ("dense" if g is None else
+                f"edge grid {g.gnx}x{g.gny}, M = {g.ell_width}, "
+                f"S = {g.tile_slots}")
+        print(f"index: {name} build {built:.2f} s, compress {packed:.2f} s; "
+              f"{bx.region_bucket.shape[0]} regions, widths {bx.widths}, "
+              f"E = {bx.num_edges}, {grid}, {bx.device_bytes()} device bytes")
+
+    scene, graph, index, built, packed = host_index(MAP, MAP_SEED)
     bx = pack_bucketed(index, device=dev)
-    t2 = time.perf_counter()
-    print(f"index: {MAP} build {t1 - t0:.2f} s, compress+pack "
-          f"{t2 - t1:.2f} s; {len(index.regions)} regions, "
-          f"widths {bx.widths}, E = {bx.num_edges} "
-          f"({scene.edges.shape[0]} real), {bx.device_bytes()} device bytes")
+    describe(f"{MAP} (default policy)", bx, built, packed)
+    require(bx.grid is None, "the auto policy attached a grid on rooms-M")
+    gbx = pack_bucketed(index, edge_grid=True, device=dev)
+    describe(f"{MAP} (edge_grid=True)", gbx, built, packed)
+    require((gbx.grid.gnx, gbx.grid.gny, gbx.grid.ell_width,
+             gbx.grid.tile_slots) == (16, 16, 4, 192),
+            "rooms-M forced grid is not 16x16, M = 4, S = 192")
+    sscene, sgraph, sindex, built, packed = host_index(GRID_MAP, GRID_SEED)
+    sbx = pack_bucketed(sindex, device=dev)
+    describe(f"{GRID_MAP} seed {GRID_SEED} (default policy)", sbx, built,
+             packed)
+    require(sbx.grid is not None and (sbx.grid.gnx, sbx.grid.gny,
+                                      sbx.grid.ell_width,
+                                      sbx.grid.tile_slots) == (8, 8, 4, 96),
+            "the auto policy did not attach the 8x8, M = 4, S = 96 grid on "
+            "rooms-S seed 0")
     B = BATCH
     E = bx.num_edges
 
-    # -- 3. kernels against their twins at the main path's shapes -------------
+    # -- 3. kernels against their twins at their paths' shapes ----------------
     rng = np.random.default_rng(0)
     verts = np.asarray(graph.nodes)
     seg_shapes = [B] + [B * w for w in bx.widths]
@@ -251,100 +467,89 @@ def main() -> None:
         require(torch.equal(got, want), f"rowmin != twin at B={B}, L={L}")
         join_err = max(join_err, max_abs_err(got, want))
     print(f"check: label_join_rowmin == twin at B = {B}, L in {bx.widths}")
+    tile_args, tile_dense = {}, {}
+    tile_err = 0.0
+    for gb, vs in ((sbx, np.asarray(sgraph.nodes)), (gbx, verts)):
+        S = gb.grid.tile_slots
+        for n in (B, TILE_CHUNK):
+            args, dense = tile_inputs(rng, gb, n, vs, dev)
+            got, want = segvis_tiles(*args), ref.segvis_tiles_ref(*args)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"segvis_tiles != twin at N={n}, S={S}")
+            require(torch.equal(got, ref.segvis_ref(*dense)),
+                    f"segvis_tiles != dense segvis twin at N={n}, S={S}")
+            tile_err = max(tile_err, max_abs_err(got, want))
+            tile_args[(S, n)], tile_dense[(S, n)] = args, dense
+    cases = tile_case_table(rng, dev)
+    for args in cases:
+        got, want = segvis_tiles(*args), ref.segvis_tiles_ref(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"segvis_tiles != twin on case N={args[0].shape[0]}, "
+                f"S={args[2].shape[1]}")
+    print(f"check: segvis_tiles == twin (and == dense segvis twin) at "
+          f"(S, N) in {sorted(tile_args)}; segvis_tiles == twin on "
+          f"{len(cases)} contact cases, (N, S) in "
+          f"{[tuple(a[2].shape) for a in cases]}")
 
-    # -- 4. main path: CudaEngine behind PathServer ----------------------------
+    # -- 4. dense main path: CudaEngine behind PathServer ----------------------
+    kernels = {"segvis": segvis, "label_join_rowmin": label_join_rowmin,
+               "segvis_tiles": segvis_tiles}
+    by_path = {}
     qs = uniform_queries(scene, graph, QUERIES, seed=QUERY_SEED)
     s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    print(f"path: {MAP} dense (default policy)")
     srv = PathServer(CudaEngine(bx), batch_size=B)
-    segvis.launches = label_join_rowmin.launches = 0
-    ref.segvis_ref.calls = ref.label_join_rowmin_ref.calls = 0
-    srv.warmup(paths=True)
-    counts = [("warmup", segvis.launches, label_join_rowmin.launches)]
-    d_first = srv.query(s, t)
-    counts.append(("pass 1", segvis.launches, label_join_rowmin.launches))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    d = srv.query(s, t)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts.append(("pass 2", segvis.launches, label_join_rowmin.launches))
-    dp, paths = srv.query_paths(s[:PATHS], t[:PATHS], host_index=index)
-    torch.cuda.synchronize()
-    counts.append(("paths", segvis.launches, label_join_rowmin.launches))
-    launches = {"segvis": segvis.launches,
-                "label_join_rowmin": label_join_rowmin.launches}
-    twin_calls = (ref.segvis_ref.calls, ref.label_join_rowmin_ref.calls)
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
-    require(twin_calls == (0, 0),
-            f"CudaEngine serving ran a twin: {twin_calls}")
-    prev = (0, 0)
-    for phase, nseg, njoin in counts:
-        print(f"launches: {phase}: segvis {nseg - prev[0]}, "
-              f"label_join_rowmin {njoin - prev[1]}")
-        prev = (nseg, njoin)
-    print(f"serve: {len(s)} queries, batch {B}, second pass "
-          f"{1e6 * wall / len(s):.3f} us/query, {len(s) / wall:.1f} qps "
-          f"(wall {wall:.4f} s)")
-    for k, st in sorted(srv.stats.per_bucket.items()):
-        print(f"  bucket {k}: width {st.width}, batches {st.batches}, "
-              f"queries {st.queries}, occupancy {st.occupancy:.3f}")
+    run = drive(srv, s, t, index, kernels, twins)
+    by_path[f"{MAP} dense"] = run["launches"]
+    require(run["launches"]["segvis"] > 0
+            and run["launches"]["label_join_rowmin"] > 0,
+            f"a kernel of the dense path never launched: {run['launches']}")
+    require(run["launches"]["segvis_tiles"] == 0,
+            "the dense path launched segvis_tiles")
 
     # -- 5. answers: twins on the card, float64 oracle, path lengths ----------
-    require(np.array_equal(d, d_first), "two passes disagree")
-    twin_srv = PathServer(TorchEngine(bx), batch_size=B)
-    require(np.array_equal(d, twin_srv.query(s, t)),
-            "CudaEngine d != TorchEngine d")
-    # the served argmin path (what query_paths unwinds), all queries
-    got = srv._dispatch(s, t, want_argmin=True)
-    want = twin_srv._dispatch(s, t, want_argmin=True)
-    for name, a, b in zip(("d", "covis", "via_s", "hub", "via_t"), got, want):
-        require(np.array_equal(a, b),
-                f"CudaEngine vs TorchEngine argmin output {name}")
-    require(np.array_equal(got[0], d), "argmin d != served d")
-    n_or = ORACLE
-    truth = np.array([host_query(index, si, ti, want_path=False)[0]
-                      for si, ti in zip(qs.s[:n_or], qs.t[:n_or])])
-    require(np.array_equal(np.isfinite(d[:n_or]), np.isfinite(truth)),
-            "reachability differs from the float64 oracle")
-    fin = np.isfinite(truth)
-    oracle_err = float(np.max(np.abs(d[:n_or][fin] - truth[fin])
-                              / np.maximum(1.0, truth[fin]), initial=0.0))
-    require(np.allclose(d[:n_or][fin], truth[fin], rtol=1e-4, atol=1e-4),
-            f"distance vs float64 oracle: max rel err {oracle_err}")
-    path_err = max((abs(path_length(p) - x) / max(1.0, x)
-                    for p, x in zip(paths, dp) if np.isfinite(x)),
-                   default=0.0)
-    require(path_err <= 1e-4, f"max |path_length - d| / max(1, d) = {path_err}")
-    require(np.array_equal(dp, d[:PATHS]), "query_paths d != query d")
-    print(f"check: CudaEngine == TorchEngine on all 5 outputs ({len(s)} "
-          f"queries); vs float64 oracle on {n_or}: reachability equal, "
-          f"max rel err {oracle_err:.3e}; paths: max |len - d| / max(1, d) "
-          f"{path_err:.3e}; reachable {int(np.isfinite(d).sum())}/{len(d)}")
+    dense_got = check_answers(srv, PathServer(TorchEngine(bx), batch_size=B),
+                              run, s, t, index, qs)
 
     # -- 6. where the serving time goes (device kernels vs wall) -------------
-    reps = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        srv.query(s, t)
-        torch.cuda.synchronize()
-        reps.append(1e6 * (time.perf_counter() - t0) / len(s))
-    print(f"spread: 5 more passes, us/query min {min(reps):.3f} median "
-          f"{float(np.median(reps)):.3f} max {max(reps):.3f}")
-    with profiler() as prof:
-        t0 = time.perf_counter()
-        srv.query(s, t)
-        torch.cuda.synchronize()
-        wall_p = time.perf_counter() - t0
-    kern = device_times(prof)
-    busy = sum(us for _, us in kern.values()) / 1e3
-    print(f"profile: one {len(s)}-query pass under the profiler: wall "
-          f"{1e3 * wall_p:.3f} ms, device kernels {busy:.3f} ms, idle share "
-          f"{1 - busy / (1e3 * wall_p):.4f}")
-    for name, (count, us) in sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"  {us / 1e3:9.4f} ms  {count:5d}x  {name[:90]}")
+    spread_and_profile(srv, s, t)
 
-    # -- 7. kernel times beside the twins' and the bound ----------------------
+    # -- 7. edge-grid path at the default policy (rooms-S seed 0) -------------
+    sqs = uniform_queries(sscene, sgraph, QUERIES, seed=QUERY_SEED)
+    ss, st = sqs.s.astype(np.float32), sqs.t.astype(np.float32)
+    print(f"path: {GRID_MAP} seed {GRID_SEED} edge grid (default policy)")
+    ssrv = PathServer(CudaEngine(sbx), batch_size=B)
+    run = drive(ssrv, ss, st, sindex, kernels, twins)
+    by_path[f"{GRID_MAP} grid"] = run["launches"]
+    require(run["launches"]["segvis_tiles"] > 0
+            and run["launches"]["label_join_rowmin"] > 0,
+            f"a kernel of the grid path never launched: {run['launches']}")
+    require(run["launches"]["segvis"] == 0,
+            "the grid path launched dense segvis")
+    check_answers(ssrv, PathServer(TorchEngine(sbx), batch_size=B), run,
+                  ss, st, sindex, sqs)
+    spread_and_profile(ssrv, ss, st)
+
+    # -- 8. edge-grid path at the main path's full width (rooms-M, forced) ----
+    print(f"path: {MAP} edge grid (edge_grid=True)")
+    gsrv = PathServer(CudaEngine(gbx), batch_size=B)
+    run = drive(gsrv, s, t, index, kernels, twins)
+    by_path[f"{MAP} grid"] = run["launches"]
+    require(run["launches"]["segvis_tiles"] > 0
+            and run["launches"]["segvis"] == 0,
+            f"rooms-M grid path launches: {run['launches']}")
+    got = gsrv._dispatch(s, t, want_argmin=True)
+    for name, a, b in zip(ANSWERS, got, dense_got):
+        require(np.array_equal(a, b),
+                f"rooms-M grid vs dense CudaEngine output {name}")
+    require(np.array_equal(run["d"], dense_got[0]), "grid d != dense d")
+    print(f"check: {MAP} grid CudaEngine == dense CudaEngine on all 5 "
+          f"outputs ({len(s)} queries)")
+    spread_and_profile(gsrv, s, t)
+
+    # -- 9. kernel times beside the twins' and the bound ----------------------
     def bound(nbytes: float, ops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         return 1e3 * max(tb, to), ("bytes" if tb > to else "operations")
@@ -358,7 +563,7 @@ def main() -> None:
         plain = sum(us for _, us in device_ms(twin_fn, 5).values()) / 5 / 1e3
         return ms, cuda_ms(kernel_fn, 50), plain
 
-    seg_rows, join_rows = [], []
+    seg_rows, join_rows, tile_rows = [], [], []
     for n, args in seg_args.items():
         ms, wrap, plain = times(lambda: segvis(*args),
                                 lambda: ref.segvis_ref(*args), "segvis_kernel")
@@ -378,11 +583,39 @@ def main() -> None:
         print(f"time: label_join_rowmin B={B} L={L}: kernel {ms:.5f} ms "
               f"(wrapper {wrap:.5f} ms), twin {plain:.5f} ms, bound "
               f"{b_ms:.5f} ms ({by})")
+    for (S, n), args in sorted(tile_args.items()):
+        ms, wrap, plain = times(lambda: segvis_tiles(*args),
+                                lambda: ref.segvis_tiles_ref(*args),
+                                "segvis_tiles_kernel")
+        # bytes and operations of the slots the OR must read on these
+        # inputs (up to each segment's first blocking slot), p/q in, flags out
+        need = slots_needed(args)
+        b_ms, by = bound(6 * 4 * need + 2 * n * 8 + n,
+                         SEGVIS_OPS_PER_PAIR * need)
+        full_ms, _ = bound(6 * 4 * n * S + 2 * n * 8 + n,
+                           SEGVIS_OPS_PER_PAIR * n * S)
+        tile_rows.append(((S, n), ms, plain, b_ms, by))
+        print(f"time: segvis_tiles N={n} S={S}: kernel {ms:.5f} ms (wrapper "
+              f"{wrap:.5f} ms), twin {plain:.5f} ms, bound {b_ms:.5f} ms "
+              f"({by}; {need} of {n * S} slots needed, all slots "
+              f"{full_ms:.5f} ms)")
+        grid = (sbx if S == sbx.grid.tile_slots else gbx).grid
+        p, q, ea, eb, ec = tile_dense[(S, n)]
+        walk = device_ms(lambda: gather_edge_tiles(grid, ea, eb, ec, p, q),
+                         20)
+        launches = sum(c for c, _ in walk.values()) / 20
+        walk_ms = sum(us for _, us in walk.values()) / 20 / 1e3
+        print(f"time: walk + gather N={n} S={S}: device {walk_ms:.5f} ms in "
+              f"{launches:.0f} device ops per call")
+
+    totals = {n: sum(run[n] for run in by_path.values()) for n in kernels}
 
     def record(name, source, replaces, rows, err, shape):
-        _, ms, plain, b_ms, by = rows[-1]       # the widest main-path shape
+        _, ms, plain, b_ms, by = rows[-1]       # the widest path shape
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": totals[name],
+                "launches_by_path": {p: run[name]
+                                     for p, run in by_path.items()},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                 "shape": shape}
@@ -396,6 +629,9 @@ def main() -> None:
                "src/repro_torch/kernels/csrc/label_join.cu",
                "src/repro/kernels/label_join.py:33", join_rows, join_err,
                f"B={B},L={join_rows[-1][0]}"),
+        record("segvis_tiles", "src/repro_torch/kernels/csrc/segvis_tiles.cu",
+               "src/repro/kernels/segvis.py:124", tile_rows, tile_err,
+               "N={1},S={0}".format(*tile_rows[-1][0])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

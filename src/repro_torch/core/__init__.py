@@ -2,6 +2,8 @@
 
 from .compression import (compress, compress_incremental,  # noqa: F401
                           compress_to_fraction)
+from .edgegrid import (EdgeGrid, build_edge_grid,          # noqa: F401
+                       gather_edge_tiles, plan_grid, segvis_grid)
 from .grid import EHLIndex, build_ehl                      # noqa: F401
 from .hublabel import build_hub_labels                     # noqa: F401
 from .maps import make_map                                 # noqa: F401

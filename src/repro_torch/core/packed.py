@@ -13,16 +13,21 @@ Shared across buckets:
 * ``edges_a/b/c``: flat obstacle-edge tensors for the query-time visibility
   predicate (``c`` is the CCW next vertex for the through-vertex rule;
   DESIGN.md §5).  Padding slots are degenerate (a == b == c), and at least
-  one exists.
+  one exists — the grid sentinel points at the last one.
+* ``grid``: optional :class:`~repro_torch.core.edgegrid.EdgeGrid` that
+  prunes the visibility predicate to the edges near each segment (DESIGN.md
+  §10), attached by the packer when it pays (or forced with
+  ``edge_grid=True``), bitwise-identical to the dense predicate.
 * ``mapper``: cell -> region id, so point location is O(1).
 
 The query runs in two halves per bucket batch, as the kernels need
 materialised planes: :func:`_fold_endpoint` (locate, gather, visibility
-fold through ``segvis``) once per endpoint side, then
-:func:`_join_endpoints` (co-visibility through ``segvis``, then the hub
-row join ``label_join_rowmin`` and the min or argmin).  ``use_kernels``
-picks the Hopper kernels (``kernels.ops``, which run the twins on CPU
-tensors) or the plain twins (``kernels.ref``) directly.
+fold through ``segvis``, or ``segvis_tiles`` over the edge grid) once per
+endpoint side, then :func:`_join_endpoints` (co-visibility through the same
+visibility dispatch, then the hub row join ``label_join_rowmin`` and the
+min or argmin).  ``use_kernels`` picks the Hopper kernels (``kernels.ops``,
+which run the twins on CPU tensors) or the plain twins (``kernels.ref``)
+directly.
 
 Everything on the device is float32/int32; the host oracle is float64.
 """
@@ -34,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .edgegrid import EdgeGrid, build_edge_grid, plan_grid, segvis_grid
 from .grid import EHLIndex
 
 HUB_PAD = np.int32(2 ** 30)     # sorts after every real hub id
@@ -92,6 +98,7 @@ class BucketedIndex:
     width: float
     height: float
     widths: tuple           # per-bucket label width, strictly increasing
+    grid: EdgeGrid | None = None    # edge-grid pruning (DESIGN.md §10)
 
     @property
     def device(self) -> torch.device:
@@ -113,7 +120,8 @@ class BucketedIndex:
         fixed = sum(a.numel() * a.element_size() for a in
                     (self.mapper, self.region_bucket, self.region_row,
                      self.edges_a, self.edges_b, self.edges_c))
-        return int(slabs) + int(fixed)
+        return (int(slabs) + int(fixed)
+                + (self.grid.device_bytes() if self.grid else 0))
 
     def bucket_stats(self) -> list[dict]:
         """Per-bucket occupancy: regions, used/total label slots, waste."""
@@ -189,6 +197,26 @@ def _pack_edges(scene_or_index, lane: int):
     return ea, eb, ec
 
 
+def _maybe_grid(ea: np.ndarray, eb: np.ndarray, num_real: int, scene,
+                edge_grid: bool | None, dev: torch.device) -> EdgeGrid | None:
+    """Build the edge grid when forced or when pruning pays.
+
+    ``edge_grid=None`` (auto) attaches the grid only when the per-segment
+    gathered tile (``3 * max(gnx, gny) * M`` slots) is smaller than the
+    dense edge list; it decides host-side through :func:`plan_grid` before
+    building anything.  ``True``/``False`` force.
+    """
+    if edge_grid is False:
+        return None
+    if edge_grid is None:
+        gnx, gny, _, M = plan_grid(ea, eb, num_real, scene.width,
+                                   scene.height)
+        if 3 * max(gnx, gny) * M >= ea.shape[0]:
+            return None
+    return build_edge_grid(ea, eb, num_real, scene.width, scene.height,
+                           sentinel=ea.shape[0] - 1, device=dev)
+
+
 def plan_buckets(index: EHLIndex, lane: int = 128
                  ) -> tuple[list, list, np.ndarray]:
     """Bucket assignment from the grid's pack metadata — no device arrays.
@@ -204,13 +232,16 @@ def plan_buckets(index: EHLIndex, lane: int = 128
 
 
 def pack_bucketed(index: EHLIndex, lane: int = 128,
+                  edge_grid: bool | None = None,
                   device="cuda") -> BucketedIndex:
     """Freeze a host index into width-bucketed slabs on ``device``.
 
     Each region goes into the smallest power-of-two-multiple-of-``lane``
     bucket that holds its label count, so padding waste is < 50% per region
-    instead of being governed by the single largest merged region.  Dense
-    visibility only (no edge grid yet).
+    instead of being governed by the single largest merged region.
+
+    ``edge_grid``: ``None`` attaches the §10 edge grid when pruning pays,
+    ``True``/``False`` force it on/off.
     """
     dev = resolve_device(device)
     live, packs = _host_packs(index)
@@ -229,6 +260,8 @@ def pack_bucketed(index: EHLIndex, lane: int = 128,
         slabs.append(arrs)
 
     ea, eb, ec = _pack_edges(index, lane)
+    grid = _maybe_grid(ea, eb, index.scene.edges.shape[0], index.scene,
+                       edge_grid, dev)
     return _to_device(dict(
         hub_ids=[a[0] for a in slabs], via_xy=[a[1] for a in slabs],
         via_d=[a[2] for a in slabs], via_ids=[a[3] for a in slabs],
@@ -236,12 +269,13 @@ def pack_bucketed(index: EHLIndex, lane: int = 128,
         region_row=region_row, edges_a=ea, edges_b=eb, edges_c=ec,
         nx=index.nx, ny=index.ny, cell_size=index.cell_size,
         width=index.scene.width, height=index.scene.height,
-        widths=widths), dev)
+        widths=widths, grid=grid), dev)
 
 
 _PLANES = ("mapper", "region_bucket", "region_row",
            "edges_a", "edges_b", "edges_c")
 _SLABS = ("hub_ids", "via_xy", "via_d", "via_ids")
+_GRID_STATIC = ("gnx", "gny", "gcell", "sentinel", "eps")
 _DTYPES = dict(hub_ids=np.int32, via_xy=np.float32, via_d=np.float32,
                via_ids=np.int32, mapper=np.int32, region_bucket=np.int32,
                region_row=np.int32, edges_a=np.float32, edges_b=np.float32,
@@ -252,13 +286,21 @@ def _to_device(planes: dict, dev: torch.device) -> BucketedIndex:
     def put(a):                 # np.array copies: no aliasing of the input
         return torch.as_tensor(np.array(a), device=dev)
 
+    grid = planes.get("grid")
+    if isinstance(grid, dict):
+        grid = EdgeGrid(cell_ids=put(grid["cell_ids"]),
+                        cell_len=put(grid["cell_len"]),
+                        gnx=int(grid["gnx"]), gny=int(grid["gny"]),
+                        gcell=float(grid["gcell"]),
+                        sentinel=int(grid["sentinel"]),
+                        eps=float(grid["eps"]))
     return BucketedIndex(
         **{k: tuple(put(a) for a in planes[k]) for k in _SLABS},
         **{k: put(planes[k]) for k in _PLANES},
         nx=int(planes["nx"]), ny=int(planes["ny"]),
         cell_size=float(planes["cell_size"]), width=float(planes["width"]),
         height=float(planes["height"]),
-        widths=tuple(int(w) for w in planes["widths"]))
+        widths=tuple(int(w) for w in planes["widths"]), grid=grid)
 
 
 def bucketed_from_numpy(planes: dict, device) -> BucketedIndex:
@@ -266,12 +308,27 @@ def bucketed_from_numpy(planes: dict, device) -> BucketedIndex:
 
     ``planes`` holds the reference ``repro.core.packed.BucketedIndex``
     fields: every array as a numpy array, the per-bucket slabs as lists of
-    them, the static metadata as plain values.  Lets two packages answer
-    queries over the very same artifact.  Only the dense float32 layout is
-    taken: planes that carry an edge grid or quantized slabs raise.
+    them, the static metadata as plain values.  ``grid`` is None or a dict
+    of the edge grid's ``cell_ids``/``cell_len`` numpy planes and its static
+    fields (``gnx, gny, gcell, sentinel, eps``).  Lets two packages answer
+    queries over the very same artifact.  Only the float32 layout is taken:
+    quantized slabs raise.
     """
-    if planes.get("grid") is not None:
-        raise ValueError("only the dense layout is supported (no edge grid)")
+    grid = planes.get("grid")
+    if grid is not None:
+        missing = {"cell_ids", "cell_len", *_GRID_STATIC} - set(grid)
+        if missing:
+            raise ValueError(f"grid lacks {sorted(missing)}")
+        ids, lens = np.asarray(grid["cell_ids"]), np.asarray(grid["cell_len"])
+        if ids.dtype != np.int32 or lens.dtype != np.int32:
+            raise ValueError("grid cell_ids and cell_len must be int32")
+        rows = int(grid["gnx"]) * int(grid["gny"]) + 1
+        if ids.ndim != 2 or ids.shape[0] != rows or lens.shape != (rows,):
+            raise ValueError(f"grid planes must be [{rows}, M] and [{rows}]")
+        num_edges = len(planes["edges_a"])
+        if not (0 <= int(grid["sentinel"]) < num_edges
+                and 0 <= ids.min() and ids.max() < num_edges):
+            raise ValueError("grid edge ids outside the packed edges")
     for k in _SLABS:
         if len(planes[k]) != len(planes["widths"]):
             raise ValueError(f"{k}: one slab per bucket expected")
@@ -300,8 +357,16 @@ def locate_regions(bx: BucketedIndex, pts: torch.Tensor) -> torch.Tensor:
 
 
 def _segvis(p, q, bx: BucketedIndex, use_kernels: bool) -> torch.Tensor:
+    """Visibility dispatch: grid-pruned when the artifact carries a grid.
+
+    The grid path is bitwise-identical to the dense path (DESIGN.md §10
+    superset argument), so this choice is invisible to every caller.
+    """
     from repro_torch.kernels import ops
 
+    if bx.grid is not None:
+        return segvis_grid(p, q, bx.edges_a, bx.edges_b, bx.edges_c, bx.grid,
+                           use_kernels=use_kernels)
     fn = ops.segvis_kernel if use_kernels else ops.segvis_ref
     return fn(p, q, bx.edges_a, bx.edges_b, bx.edges_c)
 

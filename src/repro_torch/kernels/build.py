@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exports plain C launch functions (no PyTorch
 headers), so one ``nvcc`` call takes seconds.  The shared library lands in
 ``build/repro_torch/`` at the root of the checkout, named by a hash of the
-source and the flags: a changed source is rebuilt, an unchanged one is
-loaded as it is.  Builds happen at first use, never at import.  A build
-writes to a private temporary name and renames it into place, so processes
-that build the same source at once never load a half-written library.
+source, every shared header ``csrc/*.cuh`` and the flags: a changed source
+or header is rebuilt, an unchanged one is loaded as it is.  Builds happen
+at first use, never at import.  A build writes to a private temporary name
+and renames it into place, so processes that build the same source at once
+never load a half-written library.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("segvis", "label_join")
+KERNEL_SOURCES = ("segvis", "label_join", "segvis_tiles")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -41,8 +42,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, every header
+    in ``csrc/`` and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -14,8 +14,10 @@ import torch
 from . import ref as _ref
 from .label_join import label_join_rowmin as _label_join_rowmin_cuda
 from .segvis import segvis as _segvis_cuda
+from .segvis_tiles import segvis_tiles as _segvis_tiles_cuda
 
 segvis_ref = _ref.segvis_ref
+segvis_tiles_ref = _ref.segvis_tiles_ref
 label_join_rowmin_ref = _ref.label_join_rowmin_ref
 
 
@@ -25,6 +27,15 @@ def segvis_kernel(p: torch.Tensor, q: torch.Tensor, ea: torch.Tensor,
     if p.device.type == "cpu":
         return _ref.segvis_ref(p, q, ea, eb, ec)
     return _segvis_cuda(p, q, ea, eb, ec)
+
+
+def segvis_tiles_kernel(p: torch.Tensor, q: torch.Tensor,
+                        ax: torch.Tensor, ay: torch.Tensor,
+                        bx: torch.Tensor, by: torch.Tensor,
+                        cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    if p.device.type == "cpu":
+        return _ref.segvis_tiles_ref(p, q, ax, ay, bx, by, cx, cy)
+    return _segvis_tiles_cuda(p, q, ax, ay, bx, by, cx, cy)
 
 
 def label_join_rowmin_kernel(hub_s: torch.Tensor, vd_s: torch.Tensor,

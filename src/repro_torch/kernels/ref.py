@@ -93,6 +93,29 @@ def segvis_ref(p: torch.Tensor, q: torch.Tensor, ea: torch.Tensor,
 segvis_ref.calls = 0
 
 
+def segvis_tiles_ref(p: torch.Tensor, q: torch.Tensor,
+                     ax: torch.Tensor, ay: torch.Tensor,
+                     bx: torch.Tensor, by: torch.Tensor,
+                     cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """[N] bool visibility over per-segment gathered edge tiles.
+
+    The grid-pruned form: each segment i carries its own [S] edge slots
+    (``core.edgegrid.gather_edge_tiles``, six [N, S] float32 planes);
+    unused slots hold the degenerate sentinel (a == b == c), which
+    :func:`blocked_pairs` never blocks on.  Same predicate body as
+    :func:`segvis_ref`, so results are bitwise-identical whenever the tiles
+    cover every blocking edge.
+    """
+    segvis_tiles_ref.calls += 1
+    blocked = blocked_pairs(
+        p[:, 0, None], p[:, 1, None], q[:, 0, None], q[:, 1, None],
+        ax, ay, bx, by, cx, cy)
+    return ~blocked.any(dim=1)
+
+
+segvis_tiles_ref.calls = 0
+
+
 def label_join_rowmin_ref(hub_s: torch.Tensor, vd_s: torch.Tensor,
                           hub_t: torch.Tensor, vd_t: torch.Tensor
                           ) -> torch.Tensor:

@@ -19,6 +19,7 @@ from repro_torch.core.workload import uniform_queries
 from repro_torch.kernels import ref
 from repro_torch.kernels.label_join import label_join_rowmin
 from repro_torch.kernels.segvis import segvis
+from repro_torch.kernels.segvis_tiles import segvis_tiles
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +76,74 @@ def test_wrappers_check_their_inputs(card):
         label_join_rowmin(h, v.half(), h, v)
     with pytest.raises(ValueError):
         label_join_rowmin(h, v, h, v.t())
+
+
+def _tiles(rng, n, s, card):
+    """Endpoints and six [N, S] planes: zero-padded slots, degenerate edges,
+    segments ending on slot vertices."""
+    p = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+    q = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+    a, b, c = (rng.uniform(0, 10, (n, s, 2)).astype(np.float32)
+               for _ in range(3))
+    pad = rng.random((n, s)) < 0.25
+    a[pad] = b[pad] = c[pad] = 0.0
+    degen = rng.random((n, s)) < 0.1
+    b[degen] = a[degen]
+    if s:
+        k = rng.integers(0, s, n)
+        anchor = rng.random(n) < 0.4
+        q[anchor] = a[np.arange(n), k][anchor]
+    planes = [np.ascontiguousarray(x[..., i]) for x in (a, b, c)
+              for i in (0, 1)]
+    return [torch.from_numpy(x).to(card) for x in [p, q] + planes]
+
+
+@pytest.mark.parametrize("n,s", [(1, 1), (7, 33), (300, 600), (256, 96),
+                                 (1000, 1), (8192, 192), (5, 0)])
+def test_segvis_tiles_kernel_equals_twin(card, n, s):
+    args = _tiles(np.random.default_rng(n * 31 + s), n, s, card)
+    got = segvis_tiles(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.segvis_tiles_ref(*args))
+
+
+def test_segvis_tiles_wrapper_checks_inputs(card):
+    p = torch.zeros((4, 2), device=card)
+    t = torch.zeros((4, 8), device=card)
+    with pytest.raises(TypeError):
+        segvis_tiles(p, p, t.double(), t, t, t, t, t)
+    with pytest.raises(ValueError):
+        segvis_tiles(p, p, t, t[:, :7].contiguous(), t, t, t, t)
+    with pytest.raises(ValueError):
+        segvis_tiles(p, p[:3], t, t, t, t, t, t)
+    with pytest.raises(ValueError):
+        segvis_tiles(p, p, t, t, t, t, t, t.t().contiguous().t())
+    with pytest.raises(ValueError, match="CUDA"):
+        segvis_tiles(p.cpu(), p.cpu(), *[t.cpu()] * 6)
+
+
+def test_cuda_engine_on_grid_equals_torch_and_dense(card):
+    """Forced-grid artifact: CudaEngine == TorchEngine == dense CudaEngine,
+    and the grid serving launches segvis_tiles, never dense segvis."""
+    from repro_torch.serving import CudaEngine, PathServer, TorchEngine
+
+    scene = make_map("rooms-S", seed=1)
+    graph = build_visgraph(scene)
+    idx = build_ehl(scene, cell_size=2.0, graph=graph)
+    compress_to_fraction(idx, 0.2)
+    grid_bx = pack_bucketed(idx, edge_grid=True, device=card)
+    dense_bx = pack_bucketed(idx, edge_grid=False, device=card)
+    qs = uniform_queries(scene, graph, 300, seed=5)
+    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    dense_launches, tile_launches = segvis.launches, segvis_tiles.launches
+    a = PathServer(CudaEngine(grid_bx), batch_size=64)._dispatch(s, t, True)
+    assert segvis_tiles.launches > tile_launches
+    assert segvis.launches == dense_launches
+    b = PathServer(TorchEngine(grid_bx), batch_size=64)._dispatch(s, t, True)
+    c = PathServer(CudaEngine(dense_bx), batch_size=64)._dispatch(s, t, True)
+    for x, y, z in zip(a, b, c):
+        np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(x, z)
 
 
 def test_cuda_engine_equals_torch_engine_on_card(card):

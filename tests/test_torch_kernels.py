@@ -187,8 +187,8 @@ echo "ptxas info    : Used 8 registers"; cp "$src" "$out"
 
 def test_build_compiles_once_keyed_by_source(tmp_path, monkeypatch):
     """Each source builds once into a hash-named library; a changed source
-    builds anew; a failed build raises with the compiler's output and
-    leaves no library behind."""
+    or shared header builds anew; a failed build raises with the compiler's
+    output and leaves no library behind."""
     from repro_torch.kernels import build
 
     nvcc = tmp_path / "nvcc"
@@ -210,6 +210,14 @@ def test_build_compiles_once_keyed_by_source(tmp_path, monkeypatch):
     (csrc / "a.cu").write_text("// a, edited\n")
     assert build.library_path("a") != lib_a
     assert sorted(build.build(("a", "b"))) == ["a"]
+    # a shared header is part of every library's key: editing it rebuilds
+    (csrc / "shared.cuh").write_text("// shared\n")
+    keyed = {n: build.library_path(n) for n in ("a", "b")}
+    assert sorted(build.build(("a", "b"))) == ["a", "b"]
+    (csrc / "shared.cuh").write_text("// shared, edited\n")
+    assert all(build.library_path(n) != keyed[n] for n in ("a", "b"))
+    assert sorted(build.build(("a", "b"))) == ["a", "b"]
+    assert build.build(("a", "b")) == {}
     (csrc / "b.cu").write_text("// FAIL\n")
     with pytest.raises(RuntimeError, match="bad source"):
         build.build(("a", "b"))

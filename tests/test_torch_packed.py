@@ -2,9 +2,11 @@
 
 The port builds its own host index with its own copies of the numpy index
 code; it must land on the reference's region partition and label packs,
-and its ``pack_bucketed(device="cpu")`` planes must equal the reference's
-``pack_bucketed(edge_grid=False)`` (the auto policy would attach an edge
-grid on rooms-S, which this slice does not port yet).
+and its ``pack_bucketed(edge_grid=..., device="cpu")`` planes, edge-grid
+planes and ``device_bytes()`` must equal the reference's
+``pack_bucketed(edge_grid=...)`` under each policy: auto (``None``), forced
+on and forced off.  On rooms-S seed 1 the auto policy stays dense; on
+rooms-S seed 0 it attaches the grid.
 """
 
 import numpy as np
@@ -14,6 +16,10 @@ pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 from repro.core import packed as ref_packed
+from repro.core.compression import compress_to_fraction as ref_compress
+from repro.core.grid import build_ehl as ref_build_ehl
+from repro.core.maps import make_map as ref_make_map
+from repro.core.visgraph import build_visgraph as ref_build_visgraph
 from repro_torch.core import packed as port_packed
 from repro_torch.core.compression import compress_to_fraction
 from repro_torch.core.grid import build_ehl
@@ -24,6 +30,7 @@ SLABS = ("hub_ids", "via_xy", "via_d", "via_ids")
 PLANES = ("mapper", "region_bucket", "region_row",
           "edges_a", "edges_b", "edges_c")
 STATIC = ("nx", "ny", "cell_size", "width", "height", "widths")
+GRID_STATIC = ("gnx", "gny", "gcell", "sentinel", "eps")
 
 
 @pytest.fixture(scope="module")
@@ -36,8 +43,36 @@ def port_index():
 
 
 @pytest.fixture(scope="module")
+def port_index_seed0():
+    """The port's rooms-S seed 0 index at 0.2: the auto policy attaches."""
+    scene = make_map("rooms-S", seed=0)
+    idx = build_ehl(scene, cell_size=2.0, graph=build_visgraph(scene))
+    compress_to_fraction(idx, 0.2)
+    return idx
+
+
+@pytest.fixture(scope="module")
+def ref_index_seed0():
+    scene = ref_make_map("rooms-S", seed=0)
+    idx = ref_build_ehl(scene, cell_size=2.0,
+                        graph=ref_build_visgraph(scene))
+    ref_compress(idx, 0.2)
+    return idx
+
+
+@pytest.fixture(scope="module")
 def ref_bucketed(compressed_s):
     return ref_packed.pack_bucketed(compressed_s[0], edge_grid=False)
+
+
+def grid_planes(grid) -> dict | None:
+    """An edge grid's planes as numpy and its static fields (None: none)."""
+    if grid is None:
+        return None
+    planes = {k: np.asarray(getattr(grid, k)) for k in ("cell_ids",
+                                                         "cell_len")}
+    planes.update({k: getattr(grid, k) for k in GRID_STATIC})
+    return planes
 
 
 def reference_planes(bx) -> dict:
@@ -45,7 +80,16 @@ def reference_planes(bx) -> dict:
     planes = {k: [np.asarray(a) for a in getattr(bx, k)] for k in SLABS}
     planes.update({k: np.asarray(getattr(bx, k)) for k in PLANES})
     planes.update({k: getattr(bx, k) for k in STATIC})
-    planes["grid"] = bx.grid
+    planes["grid"] = grid_planes(bx.grid)
+    return planes
+
+
+def port_planes(bx) -> dict:
+    """The port's BucketedIndex fields in the same numpy form."""
+    planes = {k: [a.numpy() for a in getattr(bx, k)] for k in SLABS}
+    planes.update({k: getattr(bx, k).numpy() for k in PLANES})
+    planes.update({k: getattr(bx, k) for k in STATIC})
+    planes["grid"] = grid_planes(bx.grid)
     return planes
 
 
@@ -61,6 +105,15 @@ def assert_same_artifact(port, planes):
         np.testing.assert_array_equal(got, planes[k], err_msg=k)
     for k in STATIC:
         assert getattr(port, k) == planes[k], k
+    want = planes.get("grid")
+    assert (port.grid is None) == (want is None)
+    if want is not None:
+        got = grid_planes(port.grid)
+        for k in ("cell_ids", "cell_len"):
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        for k in GRID_STATIC:
+            assert got[k] == want[k], k
 
 
 def test_host_index_same_partition(port_index, compressed_s):
@@ -91,20 +144,78 @@ def test_pack_bucketed_planes_equal_reference(port_index, ref_bucketed):
     assert port.bucket_stats() == ref_bucketed.bucket_stats()
 
 
+@pytest.mark.parametrize("edge_grid", [None, True, False],
+                         ids=["auto", "grid", "dense"])
+@pytest.mark.parametrize("seed", [1, 0])
+def test_pack_bucketed_grid_policy_equals_reference(
+        seed, edge_grid, port_index, port_index_seed0, compressed_s,
+        ref_index_seed0):
+    """Every plane, the grid's planes and ``device_bytes()`` under each
+    policy; seed 1 stays dense under auto, seed 0 attaches the grid."""
+    port_idx = port_index if seed == 1 else port_index_seed0
+    ref_idx = compressed_s[0] if seed == 1 else ref_index_seed0
+    want = ref_packed.pack_bucketed(ref_idx, edge_grid=edge_grid)
+    got = port_packed.pack_bucketed(port_idx, edge_grid=edge_grid,
+                                    device="cpu")
+    assert_same_artifact(got, reference_planes(want))
+    assert got.device_bytes() == want.device_bytes()
+    if edge_grid is None:
+        assert (got.grid is not None) == (seed == 0)
+
+
+def test_default_pack_attaches_grid_on_rooms_s_seed0(port_index_seed0):
+    """The default artifact of rooms-S seed 0 at 0.2 carries the grid."""
+    bx = port_packed.pack_bucketed(port_index_seed0, device="cpu")
+    g = bx.grid
+    assert (g.gnx, g.gny, g.ell_width, g.tile_slots) == (8, 8, 4, 96)
+    assert bx.widths == (128,) and bx.region_bucket.shape[0] == 153
+    assert bx.device_bytes() == 400876
+    dense = port_packed.pack_bucketed(port_index_seed0, edge_grid=False,
+                                      device="cpu")
+    assert bx.device_bytes() - dense.device_bytes() == g.device_bytes()
+
+
 def test_bucketed_from_numpy_equals_port_pack(port_index, ref_bucketed):
     carried = port_packed.bucketed_from_numpy(reference_planes(ref_bucketed),
                                               device="cpu")
-    own = port_packed.pack_bucketed(port_index, device="cpu")
-    planes = {k: [a.numpy() for a in getattr(own, k)] for k in SLABS}
-    planes.update({k: getattr(own, k).numpy() for k in PLANES})
-    planes.update({k: getattr(own, k) for k in STATIC})
-    assert_same_artifact(carried, planes)
+    own = port_packed.pack_bucketed(port_index, edge_grid=False, device="cpu")
+    assert_same_artifact(carried, port_planes(own))
 
 
-def test_bucketed_from_numpy_refuses_edge_grid(compressed_s):
+def test_bucketed_from_numpy_carries_edge_grid(port_index, compressed_s):
+    """A reference grid artifact is carried grid and all, and the port's
+    answers on it equal its answers on its own grid artifact."""
     gridded = ref_packed.pack_bucketed(compressed_s[0], edge_grid=True)
-    with pytest.raises(ValueError, match="dense"):
-        port_packed.bucketed_from_numpy(reference_planes(gridded), "cpu")
+    carried = port_packed.bucketed_from_numpy(reference_planes(gridded),
+                                              "cpu")
+    own = port_packed.pack_bucketed(port_index, edge_grid=True, device="cpu")
+    assert carried.grid is not None
+    assert_same_artifact(carried, port_planes(own))
+    assert carried.device_bytes() == gridded.device_bytes()
+    rng = np.random.default_rng(9)
+    s = rng.uniform(0, [own.width, own.height], (96, 2)).astype(np.float32)
+    t = rng.uniform(0, [own.width, own.height], (96, 2)).astype(np.float32)
+    for a, b in zip(
+            port_packed.query_batch_bucketed(carried, s, t, want_argmin=True),
+            port_packed.query_batch_bucketed(own, s, t, want_argmin=True)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("fault", ["missing", "dtype", "shape", "ids"])
+def test_bucketed_from_numpy_refuses_malformed_grid(compressed_s, fault):
+    planes = reference_planes(
+        ref_packed.pack_bucketed(compressed_s[0], edge_grid=True))
+    grid = planes["grid"]
+    if fault == "missing":
+        del grid["eps"]
+    elif fault == "dtype":
+        grid["cell_ids"] = grid["cell_ids"].astype(np.int64)
+    elif fault == "shape":
+        grid["cell_len"] = grid["cell_len"][:-1]
+    else:
+        grid["cell_ids"] = grid["cell_ids"] + len(planes["edges_a"])
+    with pytest.raises(ValueError, match="grid"):
+        port_packed.bucketed_from_numpy(planes, "cpu")
 
 
 def test_bucketed_from_numpy_refuses_quantized_slabs(compressed_s):
