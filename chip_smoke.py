@@ -5,8 +5,11 @@
 
 Builds the Hopper kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch twin (``torch.equal``) at every
-shape its path gives it, then drives three serving paths, each with the
-launch counts set to 0 just before it and read just after:
+shape its path gives it, on contact tables, and on the main path's own
+operands (for every rooms-M bucket width W, the first 256 served queries
+that dispatch at W: their fold segments and masked label rows), then
+drives three serving paths, each with the launch counts set to 0 just
+before it and read just after:
 
 * the dense main path: rooms-M (seed 0, cell 2.0) compressed to 20% of its
   label memory, packed into width buckets on the card (the auto edge-grid
@@ -23,7 +26,9 @@ launch counts set to 0 just before it and read just after:
 
 The answers are checked against the twin engine on the card (bit for bit)
 and the float64 host oracle (1e-4).  Prints the card, the build time,
-per-kernel times beside the twins' and the bound, one JSON line of kernel
+per-kernel times beside the twins' and the bound (counted from what each
+run's inputs need: ``pairs_needed``, ``join_bytes``), the ``segvis`` time at
+every group size G on the main-path operands, one JSON line of kernel
 records and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is non-zero and the last line is never printed.
 Needs one CUDA device; exits non-zero without one.
@@ -45,12 +50,21 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores.  bound_ms = max(bytes / HBM, ops / F32).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# float32 operations of ref.blocked_pairs per (segment, edge) pair: five
-# banded signs at 14 each (6 operand subs/muls, the difference, |t1|+|t2|
-# and the band product, two compares and a negation) plus the projection
-# test (dx, dy, tb, l2, tau, l2 - tau and two compares: 14).
-SEGVIS_OPS_PER_PAIR = 5 * 14 + 14
-# row join per (i, j) pair: hub compare, select, min
+# The 67e12 counts an fma as two operations.  The visibility predicate is
+# written unfused for bit equality, so one instruction is one operation:
+# 132 SMs * 128 float32 lanes * 1.98 GHz boost clock.  Printed beside the
+# segvis bound as a note, never used as the bound.
+F32_UNFUSED_ISSUE_PER_S = 132 * 128 * 1.98e9
+# float32 operations per (segment, edge) pair once the segment's own terms
+# (dx, dy, l2, tau, l2 - tau) and the edge's (bx - ax, by - ay) are hoisted
+# (csrc/blocked_pairs.cuh): 6 differences to the endpoints, 8 cross
+# products, 4 banded signs at 3 operations and 2 compares.  A pair whose
+# edge end b lies on the segment's line needs 14 more (the fifth sign and
+# the projection); exact contacts only, so the bound leaves them out.
+SEGVIS_OPS_PER_PAIR = 6 + 8 + 4 * 5
+# a gathered slot is its own edge: the two edge differences per slot too
+TILE_OPS_PER_SLOT = SEGVIS_OPS_PER_PAIR + 2
+# the dense row join per (i, j) pair: hub compare, select, min
 ROWMIN_OPS_PER_PAIR = 3
 # the main path (the defaults of the reference's serving example)
 MAP, MAP_SEED, CELL, BUDGET = "rooms-M", 0, 2.0, 0.2
@@ -83,6 +97,33 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn``: ``reps`` calls captured
+    in one CUDA graph, replayed ``replays`` times between two CUDA events,
+    so the host's launch path is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
 
 
 def profiler():
@@ -216,19 +257,89 @@ def tile_case_table(rng, dev):
     return cases
 
 
+def needed(blk) -> int:
+    """Entries of a [N, K] blocking matrix an OR over each row must read,
+    in index order: up to the row's first True, or all K where none is."""
+    import torch
+
+    k = blk.shape[1]
+    first = torch.argmax(blk.to(torch.uint8), dim=1) + 1
+    return int(torch.where(blk.any(dim=1), first, k).sum())
+
+
 def slots_needed(args) -> int:
     """Slots the OR over each segment's tile must read on these inputs: up
     to its first blocking slot, or all S where none blocks."""
-    import torch
-
     from repro_torch.kernels.ref import blocked_pairs
 
     p, q, *planes = args
-    blk = blocked_pairs(p[:, 0, None], p[:, 1, None], q[:, 0, None],
-                        q[:, 1, None], *planes)
-    s = blk.shape[1]
-    first = torch.argmax(blk.to(torch.uint8), dim=1) + 1
-    return int(torch.where(blk.any(dim=1), first, s).sum())
+    return needed(blocked_pairs(p[:, 0, None], p[:, 1, None], q[:, 0, None],
+                                q[:, 1, None], *planes))
+
+
+def pairs_needed(args, chunk: int = 8192) -> int:
+    """(segment, edge) pairs the dense OR must evaluate on these inputs:
+    each segment's edges in index order up to its first blocking edge, or
+    all of them where none blocks, counting only edges with a != b (a
+    degenerate edge never blocks, so no pair with one is needed).  Taken
+    ``chunk`` segments at a time."""
+    from repro_torch.kernels.ref import blocked_pairs
+
+    p, q, ea, eb, ec = args
+    real = (ea != eb).any(dim=1)
+    ea, eb, ec = ea[real], eb[real], ec[real]
+    edges = (ea[None, :, 0], ea[None, :, 1], eb[None, :, 0], eb[None, :, 1],
+             ec[None, :, 0], ec[None, :, 1])
+    if not bool(real.any()):
+        return 0
+    return sum(needed(blocked_pairs(
+        p[i:i + chunk, 0, None], p[i:i + chunk, 1, None],
+        q[i:i + chunk, 0, None], q[i:i + chunk, 1, None], *edges))
+        for i in range(0, p.shape[0], chunk))
+
+
+def join_bytes(B: int, L: int) -> int:
+    """Bytes the sorted row join must move: hub_s, vd_s, hub_t, vd_t read
+    once (4 bytes a label each), the [B, L] float32 output written once."""
+    return 4 * B * L * 4 + B * L * 4
+
+
+def join_dense_ops(B: int, L: int) -> int:
+    """Operations of the dense join: (compare, select, min) per (i, j)."""
+    return ROWMIN_OPS_PER_PAIR * B * L * L
+
+
+def main_path_operands(bx, eng, s, t, B: int) -> dict:
+    """The main path's own kernel operands at every bucket: the first B
+    queries that ``eng`` routes to bucket k (zero-padded to B, as
+    PathServer pads a batch), located, gathered at width W_k and folded as
+    the serving path does it.  {W: (fold_s, fold_t, covis, join)}: fold
+    segments of each side (N = B*W), the co-visibility segments (N = B), and
+    the masked label rows (hub_s, vd_s, hub_t, vd_t) of the join."""
+    import torch
+
+    from repro_torch.core.packed import (_gather_bucketed, _mask_labels,
+                                         locate_regions)
+
+    dev = bx.device
+    edges = (bx.edges_a, bx.edges_b, bx.edges_c)
+    buckets = eng.buckets_of(s, t)
+    out = {}
+    for k, w in enumerate(bx.widths):
+        sel = np.nonzero(buckets == k)[0][:B]
+        sides, folds, masked = [], [], []
+        for pts in (s, t):
+            batch = np.zeros((B, 2), np.float32)
+            batch[:len(sel)] = pts[sel]
+            pts = torch.from_numpy(batch).to(dev)
+            labels = _gather_bucketed(bx, locate_regions(bx, pts), k)
+            folds.append((torch.repeat_interleave(pts, w, dim=0),
+                          labels[1].reshape(-1, 2).contiguous(), *edges))
+            hub, vd, _ = _mask_labels(labels, pts, bx, use_kernels=False)
+            masked += [hub.contiguous(), vd.contiguous()]
+            sides.append(pts)
+        out[w] = (folds[0], folds[1], (*sides, *edges), tuple(masked))
+    return out
 
 
 def rowmin_inputs(rng, B: int, L: int, dev, hubs: int = 96):
@@ -380,7 +491,8 @@ def main() -> None:
     from repro_torch.core.edgegrid import gather_edge_tiles
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.label_join import label_join_rowmin
-    from repro_torch.kernels.segvis import segvis
+    from repro_torch.kernels.segvis import _launch as segvis_launch
+    from repro_torch.kernels.segvis import block_threads, launch_shape, segvis
     from repro_torch.kernels.segvis_tiles import segvis_tiles
     from repro_torch.serving import CudaEngine, PathServer, TorchEngine
 
@@ -467,6 +579,26 @@ def main() -> None:
         require(torch.equal(got, want), f"rowmin != twin at B={B}, L={L}")
         join_err = max(join_err, max_abs_err(got, want))
     print(f"check: label_join_rowmin == twin at B = {B}, L in {bx.widths}")
+    # the main path's own operands: its fold segments and masked label rows
+    qs = uniform_queries(scene, graph, QUERIES, seed=QUERY_SEED)
+    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    main_ops = main_path_operands(bx, CudaEngine(bx), s, t, B)
+    for w, (fold_s, fold_t, covis, join) in main_ops.items():
+        for what, args in (("fold s", fold_s), ("fold t", fold_t),
+                           ("covis", covis)):
+            got, want = segvis(*args), ref.segvis_ref(*args)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"segvis != twin on the main path's {what} at W={w}")
+            seg_err = max(seg_err, max_abs_err(got, want))
+        got, want = label_join_rowmin(*join), ref.label_join_rowmin_ref(*join)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"rowmin != twin on the main path's rows at W={w}")
+        join_err = max(join_err, max_abs_err(got, want))
+    print(f"check: segvis (fold s, fold t, covis) and label_join_rowmin == "
+          f"twins on the main path's own operands at W in "
+          f"{sorted(main_ops)} (first {B} served queries per bucket)")
     tile_args, tile_dense = {}, {}
     tile_err = 0.0
     for gb, vs in ((sbx, np.asarray(sgraph.nodes)), (gbx, verts)):
@@ -497,8 +629,6 @@ def main() -> None:
     kernels = {"segvis": segvis, "label_join_rowmin": label_join_rowmin,
                "segvis_tiles": segvis_tiles}
     by_path = {}
-    qs = uniform_queries(scene, graph, QUERIES, seed=QUERY_SEED)
-    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
     print(f"path: {MAP} dense (default policy)")
     srv = PathServer(CudaEngine(bx), batch_size=B)
     run = drive(srv, s, t, index, kernels, twins)
@@ -555,34 +685,90 @@ def main() -> None:
         return 1e3 * max(tb, to), ("bytes" if tb > to else "operations")
 
     def times(kernel_fn, twin_fn, kernel_name):
-        """(kernel device ms, its wrapper's stream ms, twin device ms)."""
-        kern = device_ms(kernel_fn, 50)
-        ms = sum(us for name, (_, us) in kern.items()
-                 if name.startswith(kernel_name)) / 50 / 1e3
-        require(ms > 0, f"the profiler saw no {kernel_name}")
+        """(kernel device ms, its wrapper's stream ms, twin device ms).  The
+        kernel's time is its mean duration over the launches the profiler
+        saw in 50 calls; a session that saw none (the profiler drops a
+        session's device events now and then) is run again, twice at most."""
+        for _ in range(3):
+            seen = [(c, us) for name, (c, us) in device_ms(kernel_fn, 50)
+                    .items() if kernel_name in name]
+            if seen:
+                break
+        require(seen, f"the profiler saw no {kernel_name}")
+        ms = sum(us for _, us in seen) / sum(c for c, _ in seen) / 1e3
         plain = sum(us for _, us in device_ms(twin_fn, 5).values()) / 5 / 1e3
         return ms, cuda_ms(kernel_fn, 50), plain
 
-    seg_rows, join_rows, tile_rows = [], [], []
-    for n, args in seg_args.items():
+    def seg_time(what, args):
+        """Time segvis on ``args``; bound from the pairs these inputs need
+        (up to each segment's first blocking edge), the all-pairs bound and
+        the unfused-issue time beside it."""
+        n = args[0].shape[0]
         ms, wrap, plain = times(lambda: segvis(*args),
                                 lambda: ref.segvis_ref(*args), "segvis_kernel")
         nbytes = 2 * n * 8 + 3 * E * 8 + n      # p, q, edges in; flags out
-        b_ms, by = bound(nbytes, SEGVIS_OPS_PER_PAIR * n * E)
-        seg_rows.append((n, ms, plain, b_ms, by))
-        print(f"time: segvis N={n} E={E}: kernel {ms:.5f} ms (wrapper "
-              f"{wrap:.5f} ms), twin {plain:.5f} ms, bound {b_ms:.5f} ms "
-              f"({by})")
-    for L, args in join_args.items():
+        need = pairs_needed(args)
+        b_ms, by = bound(nbytes, SEGVIS_OPS_PER_PAIR * need)
+        all_ms, _ = bound(nbytes, SEGVIS_OPS_PER_PAIR * n * E)
+        issue_ms = 1e3 * SEGVIS_OPS_PER_PAIR * need / F32_UNFUSED_ISSUE_PER_S
+        g, threads = launch_shape(n)
+        print(f"time: segvis {what} N={n} E={E} (G={g}, {threads} threads "
+              f"a block): kernel {ms:.5f} ms (wrapper {wrap:.5f} ms), twin "
+              f"{plain:.5f} ms, bound {b_ms:.5f} ms ({by}; {need} of "
+              f"{n * E} pairs needed, all pairs {all_ms:.5f} ms; at the "
+              f"unfused issue rate {issue_ms:.5f} ms)")
+        return (n, ms, plain, b_ms, by)
+
+    def join_time(what, args):
+        """Time label_join_rowmin on ``args``; bound = the sorted join's
+        bytes, the dense join's operations printed beside it."""
+        Bj, L = args[0].shape
         ms, wrap, plain = times(lambda: label_join_rowmin(*args),
                                 lambda: ref.label_join_rowmin_ref(*args),
                                 "label_join_rowmin_kernel")
-        nbytes = 4 * B * L * 4 + B * L * 4       # 4 planes in, 1 out
-        b_ms, by = bound(nbytes, ROWMIN_OPS_PER_PAIR * B * L * L)
-        join_rows.append((L, ms, plain, b_ms, by))
-        print(f"time: label_join_rowmin B={B} L={L}: kernel {ms:.5f} ms "
-              f"(wrapper {wrap:.5f} ms), twin {plain:.5f} ms, bound "
-              f"{b_ms:.5f} ms ({by})")
+        b_ms, by = bound(join_bytes(Bj, L), 0)
+        dense_ms, _ = bound(0, join_dense_ops(Bj, L))
+        print(f"time: label_join_rowmin {what} B={Bj} L={L}: kernel "
+              f"{ms:.5f} ms (wrapper {wrap:.5f} ms), twin {plain:.5f} ms, "
+              f"bound {b_ms:.5f} ms ({by}: {join_bytes(Bj, L)} bytes; the "
+              f"dense join's {join_dense_ops(Bj, L)} operations "
+              f"{dense_ms:.5f} ms)")
+        return (L, ms, plain, b_ms, by)
+
+    tile_rows = []
+    for args in seg_args.values():
+        seg_time("synthetic", args)
+    for args in join_args.values():
+        join_time("synthetic", args)
+    main_seg, main_join = [], []
+    for w, (fold_s, fold_t, covis, join) in main_ops.items():
+        main_seg.append(seg_time(f"main-path fold s W={w}", fold_s))
+        seg_time(f"main-path fold t W={w}", fold_t)
+        main_join.append(join_time(f"main-path W={w}", join))
+    main_seg.insert(0, seg_time(f"main-path covis W={max(main_ops)}",
+                                main_ops[max(main_ops)][2]))
+
+    # segvis at every group size G on the main path's operands (CUDA-graph
+    # device time, so the host's launch path is not in it): why
+    # launch_shape picks the G it does
+    for what, args in [("covis", main_ops[max(main_ops)][2])] + [
+            (f"fold s W={w}", ops[0]) for w, ops in main_ops.items()]:
+        n = args[0].shape[0]
+        want = ref.segvis_ref(*args)
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        cols = []
+        for g in (1, 2, 4, 8, 16, 32):
+            th = block_threads(n, g)
+            out.fill_(False)
+            segvis_launch(*args, out, g, th)
+            torch.cuda.synchronize()
+            require(torch.equal(out, want),
+                    f"segvis at G={g} != twin on the main path's {what}")
+            ms = graph_ms(lambda: segvis_launch(*args, out, g, th))
+            cols.append(f"G={g}/{th}: {ms:.5f}")
+        print(f"time: segvis by group size, main-path {what} N={n} "
+              f"(G/threads: graph ms; the wrapper picks G="
+              f"{launch_shape(n)[0]}): " + ", ".join(cols))
     for (S, n), args in sorted(tile_args.items()):
         ms, wrap, plain = times(lambda: segvis_tiles(*args),
                                 lambda: ref.segvis_tiles_ref(*args),
@@ -591,9 +777,9 @@ def main() -> None:
         # inputs (up to each segment's first blocking slot), p/q in, flags out
         need = slots_needed(args)
         b_ms, by = bound(6 * 4 * need + 2 * n * 8 + n,
-                         SEGVIS_OPS_PER_PAIR * need)
+                         TILE_OPS_PER_SLOT * need)
         full_ms, _ = bound(6 * 4 * n * S + 2 * n * 8 + n,
-                           SEGVIS_OPS_PER_PAIR * n * S)
+                           TILE_OPS_PER_SLOT * n * S)
         tile_rows.append(((S, n), ms, plain, b_ms, by))
         print(f"time: segvis_tiles N={n} S={S}: kernel {ms:.5f} ms (wrapper "
               f"{wrap:.5f} ms), twin {plain:.5f} ms, bound {b_ms:.5f} ms "
@@ -623,12 +809,12 @@ def main() -> None:
     print(card)                 # as nvidia-smi printed it
     print(json.dumps({"kernels": [
         record("segvis", "src/repro_torch/kernels/csrc/segvis.cu",
-               "src/repro/kernels/segvis.py:50", seg_rows, seg_err,
-               f"N={seg_rows[-1][0]},E={E}"),
+               "src/repro/kernels/segvis.py:50", main_seg, seg_err,
+               f"main-path fold N={main_seg[-1][0]},E={E}"),
         record("label_join_rowmin",
                "src/repro_torch/kernels/csrc/label_join.cu",
-               "src/repro/kernels/label_join.py:33", join_rows, join_err,
-               f"B={B},L={join_rows[-1][0]}"),
+               "src/repro/kernels/label_join.py:33", main_join, join_err,
+               f"main-path B={B},L={main_join[-1][0]}"),
         record("segvis_tiles", "src/repro_torch/kernels/csrc/segvis_tiles.cu",
                "src/repro/kernels/segvis.py:124", tile_rows, tile_err,
                "N={1},S={0}".format(*tile_rows[-1][0])),

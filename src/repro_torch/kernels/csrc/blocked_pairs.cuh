@@ -7,8 +7,29 @@
 // __fmul_rn/__fsub_rn/__fadd_rn, which nvcc never contracts into an fma
 // whatever the flags, so each step rounds exactly as the twin's separate
 // torch ops do.  The band SIGN_BAND * FLT_EPSILON = 2^-20 is a power of two,
-// so tau is exact too.  Cost: ~84 float32 operations per pair (five banded
-// cross signs at 14 each plus the 14-op projection test).
+// so tau is exact too.
+//
+// Hoisting: a value the twin computes again for every pair is computed here
+// once, from the same operands by the same rounded operation, so it has the
+// same bits.  Terms of the segment alone (dx, dy, l2, tau, l2 - tau) live in
+// SegTerms, computed once per segment; the edge's own differences bx - ax,
+// by - ay are computed once per edge by the caller (segvis.cu stages them
+// in shared memory).  The vertex rule reads its fifth sign and the
+// projection tb only when the fourth sign is zero (b on the segment's
+// line), so they are computed only there.  What is left per pair is 34
+// float32 operations (6 differences to the endpoints, 8 cross products, 4
+// banded signs at 3 operations and 2 compares each), and 14 more on the
+// line; the twin spends 84 on every pair.
+//
+// One exact rewrite: the twin's third sign uses ay - py and ax - px; this
+// file uses -(py - ay) and -(px - ax), the differences the first sign
+// already holds.  Round-to-nearest is symmetric, fl(-x) = -fl(x), so
+// fl(a - b) = -fl(b - a) and fl(u * -v) = -fl(u * v) for every finite or
+// infinite operand; the two forms can differ only in the sign of a zero.
+// A zero's sign reaches nothing the predicate reads: fabsf drops it, a
+// difference t1 - t2 with one zero operand is the other operand up to
+// sign (a nonzero value is unchanged), and the compares d > tau,
+// d < -tau with tau >= 0 are false for +0 and -0 alike.
 
 #pragma once
 
@@ -30,35 +51,71 @@ __device__ __forceinline__ void filtered_signs(float t1, float t2,
     neg = d < -tau;
 }
 
-// ref.blocked_pairs for one (segment, edge) pair, in the twin's order of
-// operations.
-__device__ __forceinline__ bool blocked_pair(float px, float py, float qx,
-                                             float qy, float ax, float ay,
-                                             float bx, float by, float cx,
-                                             float cy) {
-    bool pos1, neg1, pos2, neg2, pos3, neg3, pos4, neg4, pos5, neg5;
-    filtered_signs(mul(sub(bx, ax), sub(py, ay)), mul(sub(by, ay), sub(px, ax)),
-                   pos1, neg1);
-    filtered_signs(mul(sub(bx, ax), sub(qy, ay)), mul(sub(by, ay), sub(qx, ax)),
-                   pos2, neg2);
-    filtered_signs(mul(sub(qx, px), sub(ay, py)), mul(sub(qy, py), sub(ax, px)),
-                   pos3, neg3);
-    filtered_signs(mul(sub(qx, px), sub(by, py)), mul(sub(qy, py), sub(bx, px)),
-                   pos4, neg4);
-    filtered_signs(mul(sub(qx, px), sub(cy, py)), mul(sub(qy, py), sub(cx, px)),
-                   pos5, neg5);
+// The terms of segment p -> q that every pair shares.
+struct SegTerms {
+    float px, py, qx, qy;
+    float dx, dy;       // q - p
+    float tau;          // BAND * l2, l2 = dx^2 + dy^2
+    float hi;           // l2 - tau
+};
+
+__device__ __forceinline__ SegTerms seg_terms(float px, float py, float qx,
+                                              float qy) {
+    SegTerms s;
+    s.px = px;
+    s.py = py;
+    s.qx = qx;
+    s.qy = qy;
+    s.dx = sub(qx, px);
+    s.dy = sub(qy, py);
+    const float l2 = add(mul(s.dx, s.dx), mul(s.dy, s.dy));
+    s.tau = mul(BAND, l2);
+    s.hi = sub(l2, s.tau);
+    return s;
+}
+
+// ref.blocked_pairs for one (segment, edge) pair in the twin's order of
+// operations; bax = bx - ax and bay = by - ay come precomputed.
+__device__ __forceinline__ bool blocked_pair_terms(const SegTerms &s,
+                                                   float ax, float ay,
+                                                   float bx, float by,
+                                                   float cx, float cy,
+                                                   float bax, float bay) {
+    const float pxa = sub(s.px, ax), pya = sub(s.py, ay);
+    const float qxa = sub(s.qx, ax), qya = sub(s.qy, ay);
+    const float bpx = sub(bx, s.px), bpy = sub(by, s.py);
+    bool pos1, neg1, pos2, neg2, pos3, neg3, pos4, neg4;
+    filtered_signs(mul(bax, pya), mul(bay, pxa), pos1, neg1);
+    filtered_signs(mul(bax, qya), mul(bay, qxa), pos2, neg2);
+    // twin: (qx - px) * (ay - py), (qy - py) * (ax - px); see the note above
+    filtered_signs(-mul(s.dx, pya), -mul(s.dy, pxa), pos3, neg3);
+    filtered_signs(mul(s.dx, bpy), mul(s.dy, bpx), pos4, neg4);
     const bool straddle12 = (pos1 && neg2) || (neg1 && pos2);
     const bool straddle34 = (pos3 && neg4) || (neg3 && pos4);
     const bool proper = straddle12 && straddle34;
     const bool zero1 = !pos1 && !neg1;
     const bool zero2 = !pos2 && !neg2;
     const bool touch_pen = ((zero1 && pos2) || (zero2 && pos1)) && straddle34;
-    const float dx = sub(qx, px);
-    const float dy = sub(qy, py);
-    const float tb = add(mul(sub(bx, px), dx), mul(sub(by, py), dy));
-    const float l2 = add(mul(dx, dx), mul(dy, dy));
-    const float tau = mul(BAND, l2);
-    const bool on_seg = (!pos4 && !neg4) && (tb > tau) && (tb < sub(l2, tau));
-    const bool vert_pen = on_seg && ((pos3 && neg5) || (neg3 && pos5));
+    // the vertex rule needs b on the segment's line (zero sign 4), which
+    // only exact contacts give: the fifth sign and tb are computed there
+    // only, and the twin's values of both are read nowhere else
+    bool vert_pen = false;
+    if (!pos4 && !neg4) {
+        bool pos5, neg5;
+        filtered_signs(mul(s.dx, sub(cy, s.py)), mul(s.dy, sub(cx, s.px)),
+                       pos5, neg5);
+        const float tb = add(mul(bpx, s.dx), mul(bpy, s.dy));
+        vert_pen = (tb > s.tau) && (tb < s.hi)
+            && ((pos3 && neg5) || (neg3 && pos5));
+    }
     return proper || touch_pen || vert_pen;
+}
+
+// The same predicate with nothing precomputed (segvis_tiles.cu: every slot
+// is its own edge).
+__device__ __forceinline__ bool blocked_pair(const SegTerms &s, float ax,
+                                             float ay, float bx, float by,
+                                             float cx, float cy) {
+    return blocked_pair_terms(s, ax, ay, bx, by, cx, cy, sub(bx, ax),
+                              sub(by, ay));
 }

@@ -1,4 +1,4 @@
-// Hub-label row join (paper Eq. 3, dense form) for Hopper.
+// Hub-label row join (paper Eq. 3, sorted form) for Hopper.
 //
 // Replaces the TPU kernel src/repro/kernels/label_join.py:_join_kernel
 // (called by label_join.py:label_join_rowmin).  For every row b and s-label i:
@@ -7,58 +7,114 @@
 //
 // with +inf when no t-label shares the hub.  Hubs are int32 (pad 2^30),
 // distances float32 (+inf = invisible via or padded slot).  Twin:
-// repro_torch/kernels/ref.py label_join_rowmin_ref.  A min and one add are
-// exact in IEEE arithmetic, so the result equals the twin bit for bit.
+// repro_torch/kernels/ref.py label_join_rowmin_ref (the dense L x L mask).
 //
-// Bound on the H100: operations.  The dense join does L^2 (compare, select,
-// min) steps per row against 16 L bytes of input and 4 L of output, so at
-// the main path's widths (L = 128..512) it is far above the memory line.
-// Design: one block per row; the block stages the t side of its row in
-// shared memory in tiles of JOIN_TILE labels (8 bytes each), every thread
-// owns one s-label at a time and scans the tile for equal hubs.  All
-// threads read the same shared word at once (a broadcast, no bank
-// conflicts).  The rows are hub-sorted (core/grid.py pack_region), which a
-// merge or binary-search form could use to cut the L^2 term; that is a
-// later redesign.
+// Precondition (every caller in the port meets it: core/packed.py
+// _mask_labels makes each distance a sum of norms and label distances, or
+// +inf): no distance is NaN or -0.  Then min is exact and independent of
+// the order in which it is taken, and fminf agrees with the twin's amin, so
+// the kernel equals the twin bit for bit on every row, sorted or not.
+//
+// Bound on the H100: bytes.  The rows the main path gives it are sorted by
+// hub (core/grid.py lexsorts each region's labels by (hub, via);
+// core/packed.py pads each slab row with HUB_PAD at its tail and
+// _gather_bucketed copies one slab row per query), so the t-labels that
+// match one hub form one contiguous run.  The sorted join reads each of the
+// 4 input planes once and writes one: 20 B L bytes, 0.00078 ms at B = 256,
+// L = 512; the dense join's 3 L^2 operations per row are gone.
+//
+// Design: one block per row.  The t row is taken in chunks of up to `tile`
+// labels (the launcher sets tile = min(L, JOIN_MAX_TILE), dynamic shared
+// memory of 12 bytes a label, above 48 KB after cudaFuncSetAttribute); rows
+// up to JOIN_MAX_TILE wide are one chunk.  For each chunk the block
+//   1. stages hubs and distances in shared memory;
+//   2. checks that the chunk's hubs are nondecreasing (__syncthreads_or);
+//   3. if so, folds each run of equal hubs to its minimum at the run's
+//      first slot: a segmented doubling min, ceil(log2(longest run)) steps
+//      of one barrier each (a padded tail of hundreds of HUB_PAD slots
+//      costs 9 steps, not hundreds of serial reads), and then each s-label
+//      finds its hub's first slot by binary search (lower bound, log2 tile
+//      probes) and reads the run's minimum;
+//   4. if not, every s-label scans the whole chunk for equal hubs (the
+//      dense form of the join, inside this kernel).
+// A row's chunks combine with fminf, carried in `out` between chunks, so a
+// chunk may be sorted or not independently of the others: each chunk's
+// minimum is exact either way.  The last chunk adds vd_s with __fadd_rn.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define JOIN_THREADS 256
-#define JOIN_TILE 1024
+// 16384 labels * 12 bytes = 192 KB of the 227 KB a block may use
+#define JOIN_MAX_TILE 16384
 
 __global__ void __launch_bounds__(JOIN_THREADS)
 label_join_rowmin_kernel(const int *__restrict__ hub_s,
                          const float *__restrict__ vd_s,
                          const int *__restrict__ hub_t,
                          const float *__restrict__ vd_t,
-                         float *__restrict__ out, int L) {
-    __shared__ int sh[JOIN_TILE];
-    __shared__ float sv[JOIN_TILE];
+                         float *__restrict__ out, int L, int tile) {
+    extern __shared__ int smem[];
+    int *sh = smem;                                 // [tile] hubs
+    float *buf0 = (float *)(smem + tile);           // [tile] distances
+    float *buf1 = buf0 + tile;                      // [tile] doubling scratch
     const size_t row = (size_t)blockIdx.x * (size_t)L;
 
-    // every thread runs the same number of i-steps, so the barriers below
-    // are reached uniformly; threads past the row's end only help stage
-    for (int i0 = 0; i0 < L; i0 += blockDim.x) {
-        const int i = i0 + threadIdx.x;
-        const bool live = i < L;
-        const int h = live ? hub_s[row + i] : 0;
-        float m = INFINITY;
-        for (int j0 = 0; j0 < L; j0 += JOIN_TILE) {
-            const int tile = min(JOIN_TILE, L - j0);
-            __syncthreads();
-            for (int k = threadIdx.x; k < tile; k += blockDim.x) {
-                sh[k] = hub_t[row + j0 + k];
-                sv[k] = vd_t[row + j0 + k];
-            }
-            __syncthreads();
-            if (live) {
-                for (int k = 0; k < tile; ++k) {
-                    if (sh[k] == h) m = fminf(m, sv[k]);
+    for (int j0 = 0; j0 < L; j0 += tile) {
+        const int n = min(tile, L - j0);
+        const bool last = j0 + n == L;
+        __syncthreads();                // the previous chunk's readers are done
+        bool unsorted = false;
+        for (int k = threadIdx.x; k < n; k += blockDim.x) {
+            sh[k] = hub_t[row + j0 + k];
+            buf0[k] = vd_t[row + j0 + k];
+        }
+        __syncthreads();
+        for (int k = threadIdx.x; k + 1 < n; k += blockDim.x)
+            unsorted |= sh[k] > sh[k + 1];
+        const float *runmin = buf0;
+        if (!__syncthreads_or(unsorted)) {
+            // after the step of width d, cur[k] = min over [k, k + 2d) of
+            // k's run: sorted hubs make sh[k + d] == sh[k] mean that every
+            // slot between lies in the run too
+            float *cur = buf0, *nxt = buf1;
+            for (int d = 1; d < n; d <<= 1) {
+                bool more = false;
+                for (int k = threadIdx.x; k < n; k += blockDim.x) {
+                    float v = cur[k];
+                    if (k + d < n && sh[k + d] == sh[k]) {
+                        v = fminf(v, cur[k + d]);
+                        more |= k + 2 * d < n && sh[k + 2 * d] == sh[k];
+                    }
+                    nxt[k] = v;
                 }
+                float *t = cur;
+                cur = nxt;
+                nxt = t;
+                if (!__syncthreads_or(more)) break;
+            }
+            runmin = cur;
+            for (int i = threadIdx.x; i < L; i += blockDim.x) {
+                const int h = hub_s[row + i];
+                float m = j0 == 0 ? INFINITY : out[row + i];
+                int lo = 0, hi = n;
+                while (lo < hi) {
+                    const int mid = (lo + hi) >> 1;
+                    if (sh[mid] < h) lo = mid + 1;
+                    else hi = mid;
+                }
+                if (lo < n && sh[lo] == h) m = fminf(m, runmin[lo]);
+                out[row + i] = last ? __fadd_rn(vd_s[row + i], m) : m;
+            }
+        } else {
+            for (int i = threadIdx.x; i < L; i += blockDim.x) {
+                const int h = hub_s[row + i];
+                float m = j0 == 0 ? INFINITY : out[row + i];
+                for (int k = 0; k < n; ++k)
+                    if (sh[k] == h) m = fminf(m, runmin[k]);
+                out[row + i] = last ? __fadd_rn(vd_s[row + i], m) : m;
             }
         }
-        if (live) out[row + i] = __fadd_rn(vd_s[row + i], m);
     }
 }
 
@@ -69,9 +125,18 @@ extern "C" int label_join_rowmin_launch(const void *hub_s, const void *vd_s,
                                         void *out, int B, int L,
                                         void *stream) {
     if (B > 0 && L > 0) {
-        label_join_rowmin_kernel<<<B, JOIN_THREADS, 0, (cudaStream_t)stream>>>(
+        const int tile = L < JOIN_MAX_TILE ? L : JOIN_MAX_TILE;
+        const size_t smem = (size_t)tile * 12;
+        if (smem > 48 * 1024) {
+            const cudaError_t err = cudaFuncSetAttribute(
+                label_join_rowmin_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (err != cudaSuccess) return (int)err;
+        }
+        label_join_rowmin_kernel<<<B, JOIN_THREADS, smem,
+                                   (cudaStream_t)stream>>>(
             (const int *)hub_s, (const float *)vd_s, (const int *)hub_t,
-            (const float *)vd_t, (float *)out, L);
+            (const float *)vd_t, (float *)out, L, tile);
     }
     return (int)cudaGetLastError();
 }

@@ -12,7 +12,7 @@
 // segvis.cu.
 //
 // Bound on the H100: bytes.  Every slot is read once (24 bytes over the six
-// planes) for ~84 float32 operations, about 3.5 operations per byte, far
+// planes) for ~50 float32 operations, about 2 operations per byte, far
 // below the card's 67e12 / 3.35e12 = 20 operations per byte.  At N = 8192,
 // S = 192 that is 37.9 MB, 0.0113 ms at 3.35 TB/s.  Fusing the walk and the
 // ELL gather into this kernel (reading 4-byte ids instead of 24-byte slots)
@@ -44,14 +44,15 @@ segvis_tiles_kernel(const float2 *__restrict__ p, const float2 *__restrict__ q,
     if (i >= n) return;                 // uniform across the warp
     const float2 pi = p[i];
     const float2 qi = q[i];
+    const SegTerms seg = seg_terms(pi.x, pi.y, qi.x, qi.y);
     const size_t row = (size_t)i * (size_t)s;
     bool blocked = false;
     for (int base = 0; base < s; base += 32) {
         const int k = base + lane;
         if (k < s) {
             const size_t o = row + k;
-            blocked = blocked_pair(pi.x, pi.y, qi.x, qi.y, ax[o], ay[o],
-                                   bx[o], by[o], cx[o], cy[o]);
+            blocked = blocked_pair(seg, ax[o], ay[o], bx[o], by[o], cx[o],
+                                   cy[o]);
         }
         if (__any_sync(0xffffffffu, blocked)) {
             blocked = true;

@@ -2,9 +2,16 @@
 
 Replaces the TPU kernel ``repro/kernels/label_join.py:_join_kernel``: the
 [B, L] row join ``out[b, i] = vd_s[b, i] + min_{j: hub_t[b, j] ==
-hub_s[b, i]} vd_t[b, j]``, the dense form of the paper's sorted merge-join
-(Eq. 3).  Bound by operations on the H100 (L^2 steps per row); see the
-source note.  Its plain twin is ``ref.label_join_rowmin_ref``;
+hub_s[b, i]} vd_t[b, j]``, in the paper's sorted form (Eq. 3).  The main
+path's label rows are sorted by hub with ``HUB_PAD`` at the tail, so one
+hub's t-labels form one run: the kernel folds each run to its minimum once
+and finds it for every s-label by binary search, bound by the 20 B L bytes
+it reads and writes.  A chunk of a row whose hubs are not sorted takes the
+dense scan inside the same kernel, so any row gives the twin's bits.
+Precondition: no distance is NaN or -0 (every caller passes sums of norms
+and label distances, or +inf); then min is exact and order-free.  Rows up
+to 16384 labels are staged in shared memory at once, wider rows in chunks
+of that size.  Its plain twin is ``ref.label_join_rowmin_ref``;
 ``kernels.ops`` picks between them by the device of the tensors.
 """
 

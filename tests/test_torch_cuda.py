@@ -17,7 +17,9 @@ from repro_torch.core.packed import pack_bucketed
 from repro_torch.core.visgraph import build_visgraph
 from repro_torch.core.workload import uniform_queries
 from repro_torch.kernels import ref
+from repro_torch.core.packed import HUB_PAD
 from repro_torch.kernels.label_join import label_join_rowmin
+from repro_torch.kernels.segvis import _launch as segvis_launch
 from repro_torch.kernels.segvis import segvis
 from repro_torch.kernels.segvis_tiles import segvis_tiles
 
@@ -49,6 +51,63 @@ def test_segvis_kernel_equals_twin(card, n, e):
     assert torch.equal(got, ref.segvis_ref(*args))
 
 
+def _contact_segs(rng, n, e, card):
+    """Random segments with every exact-contact class: ends on an edge
+    vertex, starts on one, degenerate segments and edges, ends on an open
+    edge, and collinear slides along an edge's line."""
+    p, q, a, b, c = (rng.uniform(0, 10, (k, 2)).astype(np.float32)
+                     for k in (n, n, e, e, e))
+    m = min(n, e)
+    q[:m // 3] = a[:m // 3]
+    p[m // 3:m // 2] = b[m // 3:m // 2]
+    q[m // 2:2 * m // 3] = p[m // 2:2 * m // 3]
+    b[:e // 4] = a[:e // 4]
+    mid = (a[e // 4:e // 2] + b[e // 4:e // 2]) / 2
+    k = min(len(mid), n - 2 * m // 3)
+    q[2 * m // 3:2 * m // 3 + k] = mid[:k]
+    lo = 2 * m // 3 + k
+    j = min(n - lo, e)
+    p[lo:lo + j] = 2 * a[:j] - b[:j]               # a - (b - a): on the line
+    q[lo:lo + j] = a[:j] + (b[:j] - a[:j]) / 4
+    return [torch.from_numpy(x).to(card) for x in (p, q, a, b, c)]
+
+
+@pytest.mark.parametrize("n", [1, 7, 256, 300, 1000, 2000, 4096, 6000, 12000,
+                               32768, 65536, 131072,
+                               200000, 300000])
+@pytest.mark.parametrize("e", [1, 64, 128, 700])
+def test_segvis_kernel_equals_twin_at_every_group(card, n, e):
+    """Every group size the wrapper picks (N = 1 .. 300000), E = 1, E not a
+    multiple of 32, E over one shared tile of 256 edges, with contacts."""
+    args = _contact_segs(np.random.default_rng(n * 13 + e), n, e, card)
+    got = segvis(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and got.shape == (n,)
+    assert torch.equal(got, ref.segvis_ref(*args))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("threads", [32, 256])
+@pytest.mark.parametrize("e", [128, 700])
+def test_segvis_explicit_launch_shapes_equal_twin(card, group, threads, e):
+    """Every G, one warp or 256 threads a block, one edge tile or three."""
+    n = 1000
+    args = _contact_segs(np.random.default_rng(group + threads + e), n, e,
+                         card)
+    out = torch.empty(n, dtype=torch.bool, device=card)
+    segvis_launch(*args, out, group, threads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.segvis_ref(*args))
+
+
+def test_segvis_launch_refuses_bad_shapes(card):
+    args = _contact_segs(np.random.default_rng(0), 8, 8, card)
+    out = torch.empty(8, dtype=torch.bool, device=card)
+    for group, threads in ((3, 32), (64, 64), (1, 48), (32, 512)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            segvis_launch(*args, out, group, threads)
+
+
 @pytest.mark.parametrize("b,l", [(1, 16), (33, 384), (256, 512), (3, 1500)])
 def test_rowmin_kernel_equals_twin(card, b, l):
     rng = np.random.default_rng(b * 7919 + l)
@@ -59,6 +118,62 @@ def test_rowmin_kernel_equals_twin(card, b, l):
     vs[rng.random((b, l)) < 0.2] = np.inf
     vt[rng.random((b, l)) < 0.2] = np.inf
     args = [torch.from_numpy(a).to(card) for a in (hs, vs, ht, vt)]
+    got = label_join_rowmin(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.label_join_rowmin_ref(*args))
+
+
+def _join_rows(rng, b, l, hubs, sort=True, inf_share=0.2):
+    hs = rng.integers(0, hubs, (b, l)).astype(np.int32)
+    ht = rng.integers(0, hubs, (b, l)).astype(np.int32)
+    if sort:
+        hs.sort(axis=1)
+        ht.sort(axis=1)
+    vs = rng.uniform(0, 100, (b, l)).astype(np.float32)
+    vt = rng.uniform(0, 100, (b, l)).astype(np.float32)
+    vs[rng.random((b, l)) < inf_share] = np.inf
+    vt[rng.random((b, l)) < inf_share] = np.inf
+    return hs, vs, ht, vt
+
+
+def _join_case(case):
+    rng = np.random.default_rng(len(case))
+    if case == "unsorted":
+        return _join_rows(rng, 17, 512, 40, sort=False)
+    if case == "partly_sorted":             # sorted rows, a few swapped pairs
+        hs, vs, ht, vt = _join_rows(rng, 9, 700, 60)
+        ht[::2, [10, 400]] = ht[::2, [400, 10]]
+        return hs, vs, ht, vt
+    if case == "all_equal":
+        return _join_rows(rng, 8, 512, 1)
+    if case == "no_common_hub":
+        hs, vs, ht, vt = _join_rows(rng, 8, 256, 50)
+        return hs, vs, ht + 50, vt
+    if case == "all_inf":
+        return _join_rows(rng, 8, 256, 20, inf_share=1.0)
+    if case == "padded_tail":               # the main path's HUB_PAD tails
+        hs, vs, ht, vt = _join_rows(rng, 16, 512, 96)
+        for h, v in ((hs, vs), (ht, vt)):
+            for r in range(len(h)):
+                k = rng.integers(0, 513)
+                h[r, k:] = HUB_PAD
+                v[r, k:] = np.inf
+        return hs, vs, ht, vt
+    if case == "over_tile":                 # 16384-label chunks: 2 per row
+        hs, vs, ht, vt = _join_rows(rng, 3, 20000, 300)
+        ht[1, 18000:] = ht[1, 18000:][::-1].copy()   # second chunk unsorted
+        ht[2, :5] = ht[2, 4::-1].copy()             # first chunk unsorted
+        return hs, vs, ht, vt
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["unsorted", "partly_sorted", "all_equal",
+                                  "no_common_hub", "all_inf", "padded_tail",
+                                  "over_tile"])
+def test_rowmin_kernel_equals_twin_on_any_row(card, case):
+    """Sorted or not, all-equal hubs, no match, all +inf, HUB_PAD tails, and
+    rows wider than one shared-memory chunk."""
+    args = [torch.from_numpy(a).to(card) for a in _join_case(case)]
     got = label_join_rowmin(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.label_join_rowmin_ref(*args))

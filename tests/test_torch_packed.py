@@ -225,6 +225,51 @@ def test_bucketed_from_numpy_refuses_quantized_slabs(compressed_s):
         port_packed.bucketed_from_numpy(reference_planes(quant), "cpu")
 
 
+def assert_hub_rows_sorted(hub: np.ndarray, what: str):
+    """The join kernel's fast path: hubs nondecreasing along every row, and
+    HUB_PAD only as the row's tail."""
+    assert hub.ndim == 2 and hub.shape[1] > 0, what
+    assert (np.diff(hub.astype(np.int64), axis=1) >= 0).all(), what
+    pad = (hub == int(port_packed.HUB_PAD)).astype(np.int8)
+    assert (np.diff(pad, axis=1) >= 0).all(), what
+
+
+@pytest.mark.parametrize("seed", [1, 0])
+def test_hub_rows_sorted_in_slabs_and_gathers(seed, port_index,
+                                              port_index_seed0):
+    """Every bucket slab of the rooms-S artifact, and the gathered label rows
+    of every region at every dispatch bucket, have sorted hub rows with
+    HUB_PAD only at the tail: each hub's t-labels form one run."""
+    idx = port_index if seed == 1 else port_index_seed0
+    bx = port_packed.pack_bucketed(idx, edge_grid=False, device="cpu")
+    for k, hub in enumerate(bx.hub_ids):
+        assert_hub_rows_sorted(hub.numpy(), f"slab {k}")
+    regions = torch.arange(bx.region_bucket.shape[0], dtype=torch.int32)
+    for k, w in enumerate(bx.widths):
+        hub = port_packed._gather_bucketed(bx, regions, k)[0].numpy()
+        assert hub.shape == (len(regions), w)
+        assert_hub_rows_sorted(hub, f"gather at bucket {k}")
+        # a region of a wider bucket comes back as padding only
+        wider = bx.region_bucket.numpy() > k
+        assert (hub[wider] == int(port_packed.HUB_PAD)).all()
+
+
+def test_hub_rows_sorted_in_reference_planes(ref_bucketed, ref_index_seed0):
+    """The JAX reference's slabs (its packer run on the CPU), carried across
+    through ``bucketed_from_numpy``, are sorted the same way."""
+    for ref_bx in (ref_bucketed, ref_packed.pack_bucketed(ref_index_seed0)):
+        planes = reference_planes(ref_bx)
+        for k, hub in enumerate(planes["hub_ids"]):
+            assert_hub_rows_sorted(hub, f"reference slab {k}")
+        carried = port_packed.bucketed_from_numpy(planes, "cpu")
+        regions = torch.arange(carried.region_bucket.shape[0],
+                               dtype=torch.int32)
+        for k in range(carried.num_buckets):
+            assert_hub_rows_sorted(
+                port_packed._gather_bucketed(carried, regions, k)[0].numpy(),
+                f"carried gather at bucket {k}")
+
+
 @pytest.mark.parametrize("n,lane", [(0, 128), (1, 128), (127, 128),
                                     (128, 128), (129, 128), (600, 128),
                                     (5, 64)])
