@@ -22,16 +22,26 @@ before it and read just after:
   ``segvis``);
 * the edge-grid path at the main path's full width: the rooms-M index
   packed with ``edge_grid=True``, whose answers must equal the dense
-  path's bit for bit (DESIGN.md §10).
+  path's bit for bit (DESIGN.md §10);
+* the quantized path: the same rooms-M index packed with bf16 distances
+  and u16 ids (DESIGN.md §11), whose device bytes must equal the byte
+  estimator's, whose distances must lie within 2·qerr of the dense path's
+  and whose argmin winners, after the residual rescue, must equal the
+  dense path's bit for bit.
 
-The answers are checked against the twin engine on the card (bit for bit)
-and the float64 host oracle (1e-4).  Prints the card, the build time,
-per-kernel times beside the twins' and the bound (counted from what each
-run's inputs need: ``pairs_needed``, ``join_bytes``), the ``segvis`` time at
-every group size G on the main-path operands, one JSON line of kernel
-records and, last, ``{"ok": true, "device": {...}}``.  Any failed check
-raises, so the exit code is non-zero and the last line is never printed.
-Needs one CUDA device; exits non-zero without one.
+Then the f16 layout is checked once (answers only), and a fresh rooms-M
+build is merged to 0.6x the f32 artifact's device bytes under the bf16
+layout (``compress_to_device_budget``) and served.  ``label_join_rowmin``
+is also held against its twin with bf16 and f16 distances at every
+main-path width.  The answers are checked against the twin engine on the
+card (bit for bit) and the float64 host oracle (1e-4, plus 2·qerr on a
+quantized artifact).  Prints the card, the build time, per-kernel times
+beside the twins' and the bound (counted from what each run's inputs
+need: ``pairs_needed``, ``join_bytes``), the ``segvis`` time at every group
+size G on the main-path operands, one JSON line of kernel records and,
+last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+exit code is non-zero and the last line is never printed.  Needs one CUDA
+device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -298,10 +308,11 @@ def pairs_needed(args, chunk: int = 8192) -> int:
         for i in range(0, p.shape[0], chunk))
 
 
-def join_bytes(B: int, L: int) -> int:
-    """Bytes the sorted row join must move: hub_s, vd_s, hub_t, vd_t read
-    once (4 bytes a label each), the [B, L] float32 output written once."""
-    return 4 * B * L * 4 + B * L * 4
+def join_bytes(B: int, L: int, dist_bytes: int = 4) -> int:
+    """Bytes the sorted row join must move: hub_s, hub_t (4 bytes a label)
+    and vd_s, vd_t (``dist_bytes`` a label) read once, the [B, L] float32
+    output written once."""
+    return 2 * B * L * 4 + 2 * B * L * dist_bytes + B * L * 4
 
 
 def join_dense_ops(B: int, L: int) -> int:
@@ -410,13 +421,49 @@ def drive(srv, s, t, index, kernels: dict, twins) -> dict:
                 launches=launches)
 
 
-def check_answers(srv, twin_srv, run: dict, s, t, index, qs):
+def within_qerr(a, b, qerr: float) -> bool:
+    """Equal reachability, and where finite |a - b| <= 2·qerr plus the
+    argmin threshold's 64 float32 ulps of |b| (the quantized path's
+    distance bound against the f32 path, DESIGN.md §11)."""
+    fin = np.isfinite(b)
+    if not np.array_equal(fin, np.isfinite(a)):
+        return False
+    slack = 2 * qerr + 64 * np.finfo(np.float32).eps * np.abs(b[fin])
+    return bool(np.all(np.abs(a[fin] - b[fin]) <= slack))
+
+
+def oracle_check(d, index, qs, qerr: float = 0.0) -> float:
+    """``d`` against the float64 host oracle on the first ORACLE queries:
+    equal reachability and |d - truth| <= 1e-4·max(1, truth) + 2·qerr.
+    Returns the max relative error."""
+    from repro_torch.core.query import query as host_query
+
+    n_or = ORACLE
+    truth = np.array([host_query(index, si, ti, want_path=False)[0]
+                      for si, ti in zip(qs.s[:n_or], qs.t[:n_or])])
+    require(np.array_equal(np.isfinite(d[:n_or]), np.isfinite(truth)),
+            "reachability differs from the float64 oracle")
+    fin = np.isfinite(truth)
+    err = np.abs(d[:n_or][fin] - truth[fin])
+    oracle_err = float(np.max(err / np.maximum(1.0, truth[fin]),
+                              initial=0.0))
+    require(bool(np.all(err <= 1e-4 * np.maximum(1.0, truth[fin])
+                        + 2 * qerr)),
+            f"distance vs float64 oracle: max rel err {oracle_err} "
+            f"(2·qerr {2 * qerr})")
+    return oracle_err
+
+
+def check_answers(srv, twin_srv, run: dict, s, t, index, qs,
+                  qerr: float = 0.0):
     """The served answers against the twin engine on the card (all five
     argmin outputs, bit for bit), the float64 host oracle (1e-4, equal
-    reachability) and the unwound path lengths.  Returns the argmin
-    outputs."""
+    reachability) and the unwound path lengths.  On a quantized artifact
+    (``qerr`` > 0) the served distances are the quantized ones and the
+    argmin ones are exact where the rescue ran, so those two, the oracle
+    and the path lengths are held within 2·qerr instead.  Returns the
+    argmin outputs."""
     from repro_torch.core import path_length
-    from repro_torch.core.query import query as host_query
 
     d, dp, paths = run["d"], run["dp"], run["paths"]
     require(np.array_equal(d, run["d_first"]), "two passes disagree")
@@ -428,26 +475,23 @@ def check_answers(srv, twin_srv, run: dict, s, t, index, qs):
     for name, a, b in zip(ANSWERS, got, want):
         require(np.array_equal(a, b),
                 f"CudaEngine vs TorchEngine argmin output {name}")
-    require(np.array_equal(got[0], d), "argmin d != served d")
-    n_or = ORACLE
-    truth = np.array([host_query(index, si, ti, want_path=False)[0]
-                      for si, ti in zip(qs.s[:n_or], qs.t[:n_or])])
-    require(np.array_equal(np.isfinite(d[:n_or]), np.isfinite(truth)),
-            "reachability differs from the float64 oracle")
-    fin = np.isfinite(truth)
-    oracle_err = float(np.max(np.abs(d[:n_or][fin] - truth[fin])
-                              / np.maximum(1.0, truth[fin]), initial=0.0))
-    require(np.allclose(d[:n_or][fin], truth[fin], rtol=1e-4, atol=1e-4),
-            f"distance vs float64 oracle: max rel err {oracle_err}")
+    if qerr:
+        require(within_qerr(got[0], d, qerr), "argmin d vs served d")
+        require(within_qerr(dp, d[:PATHS], qerr), "query_paths d vs query d")
+    else:
+        require(np.array_equal(got[0], d), "argmin d != served d")
+        require(np.array_equal(dp, d[:PATHS]), "query_paths d != query d")
+    oracle_err = oracle_check(d, index, qs, qerr)
     path_err = max((abs(path_length(p) - x) / max(1.0, x)
                     for p, x in zip(paths, dp) if np.isfinite(x)),
                    default=0.0)
-    require(path_err <= 1e-4, f"max |path_length - d| / max(1, d) = {path_err}")
-    require(np.array_equal(dp, d[:PATHS]), "query_paths d != query d")
+    require(path_err <= 1e-4 + 2 * qerr,
+            f"max |path_length - d| / max(1, d) = {path_err}")
     print(f"check: CudaEngine == TorchEngine on all 5 outputs ({len(s)} "
-          f"queries); vs float64 oracle on {n_or}: reachability equal, "
+          f"queries); vs float64 oracle on {ORACLE}: reachability equal, "
           f"max rel err {oracle_err:.3e}; paths: max |len - d| / max(1, d) "
-          f"{path_err:.3e}; reachable {int(np.isfinite(d).sum())}/{len(d)}")
+          f"{path_err:.3e}; reachable {int(np.isfinite(d).sum())}/{len(d)}"
+          + (f"; 2·qerr {2 * qerr:.6e}" if qerr else ""))
     return got
 
 
@@ -476,6 +520,122 @@ def spread_and_profile(srv, s, t) -> None:
           f"{1 - busy / (1e3 * wall_p):.4f}")
     for name, (count, us) in sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {us / 1e3:9.4f} ms  {count:5d}x  {name[:90]}")
+
+
+def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
+                   by_path: dict) -> None:
+    """The rooms-M index packed bf16/u16 (DESIGN.md §11), driven through
+    ``CudaEngine`` as the other paths are, and its f16 twin checked once."""
+    from repro_torch.core.packed import (bucketed_device_bytes,
+                                         pack_bucketed, slab_layout)
+    from repro_torch.serving import CudaEngine, PathServer, TorchEngine
+
+    lay = slab_layout("bf16")
+    qbx = pack_bucketed(index, layout=lay, device=dev)
+    est = bucketed_device_bytes(index, layout=lay)
+    print(f"bytes: {MAP} bf16/u16 artifact {qbx.device_bytes()} device "
+          f"bytes, f32 artifact {bx.device_bytes()} "
+          f"({bx.device_bytes() / qbx.device_bytes():.4f}x smaller); "
+          f"bucketed_device_bytes {est}")
+    require(est == qbx.device_bytes(),
+            "bucketed_device_bytes != the bf16 artifact's device_bytes()")
+    st = qbx.quant_stats()
+    print(f"quant: layout {st['layout'].dist}/{st['layout'].ids}, qerr "
+          f"{st['qerr']:.9g}, id fallback {st['id_fallback']}, via-id "
+          f"fallback {st['vid_fallback']}, distance fallback "
+          f"{st['dist_fallback']}")
+    qerr = st["qerr"]
+    print(f"path: {MAP} bf16/u16 quantized")
+    eng = CudaEngine(qbx)
+    srv = PathServer(eng, batch_size=BATCH)
+    run = drive(srv, s, t, index, kernels, twins)
+    by_path[f"{MAP} bf16"] = run["launches"]
+    require(run["launches"]["segvis"] > 0
+            and run["launches"]["label_join_rowmin"] > 0
+            and run["launches"]["segvis_tiles"] == 0,
+            f"rooms-M bf16 path launches: {run['launches']}")
+    # (a) CudaEngine == TorchEngine, (d) the float64 oracle; the rescue
+    # share of one full argmin pass
+    eng.rescue_batches = eng.rescue_rows = 0
+    eng.rescue_seconds = 0.0
+    batches = srv.stats.batches
+    got = check_answers(srv, PathServer(TorchEngine(qbx), batch_size=BATCH),
+                        run, s, t, index, qs, qerr=qerr)
+    batches = srv.stats.batches - batches
+    print(f"rescue: one argmin pass of {len(s)} queries: {eng.rescue_batches}"
+          f" of {batches} batches rescued, {eng.rescue_rows} of "
+          f"{batches * BATCH} rows (padding included), host "
+          f"{1e3 * eng.rescue_seconds:.3f} ms")
+    # (b) distances within 2·qerr of the f32 path, (c) winners bit for bit
+    dense_d = dense_got[0]
+    diff = np.abs(run["d"] - dense_d)[np.isfinite(dense_d)]
+    require(within_qerr(run["d"], dense_d, qerr),
+            "bf16 distances beyond 2·qerr of the f32 CudaEngine")
+    require(within_qerr(got[0], dense_d, qerr),
+            "bf16 argmin distances beyond 2·qerr of the f32 CudaEngine")
+    for name, a, b in zip(ANSWERS[1:], got[1:], dense_got[1:]):
+        require(np.array_equal(a, b),
+                f"bf16 vs f32 CudaEngine argmin winner {name}")
+    print(f"check: {MAP} bf16 vs f32 CudaEngine: max |d - d_f32| "
+          f"{float(diff.max(initial=0.0)):.6e} (2·qerr {2 * qerr:.6e}); "
+          f"covis, via_s, hub, via_t equal bit for bit ({len(s)} queries)")
+    spread_and_profile(srv, s, t)
+
+    # the f16 layout, answers only
+    fbx = pack_bucketed(index, layout=slab_layout("f16"), device=dev)
+    fq = float(fbx.qerr)
+    fgot = PathServer(CudaEngine(fbx), batch_size=BATCH)._dispatch(
+        s, t, want_argmin=True)
+    ftwin = PathServer(TorchEngine(fbx), batch_size=BATCH)._dispatch(
+        s, t, want_argmin=True)
+    for name, a, b in zip(ANSWERS, fgot, ftwin):
+        require(np.array_equal(a, b), f"f16 CudaEngine vs TorchEngine {name}")
+    require(within_qerr(fgot[0], dense_d, fq),
+            "f16 distances beyond 2·qerr of the f32 CudaEngine")
+    for name, a, b in zip(ANSWERS[1:], fgot[1:], dense_got[1:]):
+        require(np.array_equal(a, b),
+                f"f16 vs f32 CudaEngine argmin winner {name}")
+    print(f"check: {MAP} f16/u16 ({fbx.device_bytes()} device bytes, qerr "
+          f"{fq:.9g}, fallbacks {fbx.quant_stats()['dist_fallback']}): "
+          f"CudaEngine == TorchEngine on all 5 outputs, distances within "
+          f"2·qerr of f32, winners equal f32 ({len(s)} queries)")
+
+
+def budgeted_artifact(scene, graph, bx, s, t, qs, dev) -> None:
+    """A fresh rooms-M build merged until its bf16 artifact fits 0.6x the
+    f32 artifact's device bytes, packed and served through CudaEngine."""
+    from repro_torch.core import build_ehl, compress_to_device_budget
+    from repro_torch.core.packed import (bucketed_device_bytes,
+                                         pack_bucketed, slab_layout)
+    from repro_torch.serving import CudaEngine, PathServer
+
+    lay = slab_layout("bf16")
+    target = int(0.6 * bx.device_bytes())
+    t0 = time.perf_counter()
+    fresh = build_ehl(scene, cell_size=CELL, graph=graph)
+    t1 = time.perf_counter()
+    st = compress_to_device_budget(fresh, target, layout=lay)
+    t2 = time.perf_counter()
+    bbx = pack_bucketed(fresh, layout=lay, device=dev)
+    est = bucketed_device_bytes(fresh, layout=lay)
+    print(f"budget: {MAP} fresh build ({len(fresh.mapper)} cells) merged "
+          f"under the bf16 layout to {target} device bytes (0.6x the f32 "
+          f"artifact's {bx.device_bytes()}): {st.regions} regions admitted "
+          f"(f32 artifact at budget {BUDGET}: {bx.region_bucket.shape[0]}), "
+          f"{st.merges} merges, realized {bbx.device_bytes()} device bytes, "
+          f"estimator {est}, widths {bbx.widths}; host seconds: build "
+          f"{t1 - t0:.3f}, compress_to_device_budget {t2 - t1:.3f}")
+    require(st.device_bytes == est == bbx.device_bytes() <= target,
+            "budgeted artifact: realized, estimated and stated bytes differ "
+            "or exceed the budget")
+    srv = PathServer(CudaEngine(bbx), batch_size=BATCH)
+    srv.warmup(paths=True)
+    d = srv.query(s, t)
+    err = oracle_check(d, fresh, qs, float(bbx.qerr))
+    print(f"check: budgeted bf16 artifact through CudaEngine: vs float64 "
+          f"oracle on {ORACLE}: reachability equal, max rel err {err:.3e} "
+          f"(2·qerr {2 * float(bbx.qerr):.6e}); reachable "
+          f"{int(np.isfinite(d).sum())}/{len(d)}")
 
 
 def main() -> None:
@@ -599,6 +759,25 @@ def main() -> None:
     print(f"check: segvis (fold s, fold t, covis) and label_join_rowmin == "
           f"twins on the main path's own operands at W in "
           f"{sorted(main_ops)} (first {B} served queries per bucket)")
+    # bf16/f16 distances, both sides one type: the kernel widens at staging
+    narrow = {"bf16": torch.bfloat16, "f16": torch.float16}
+    narrow_rows = {}
+    for L in bx.widths:
+        for what, (hs, vs, ht, vt) in (("synthetic", join_args[L]),
+                                       ("main-path", main_ops[L][3])):
+            for name, dt in narrow.items():
+                args = (hs, vs.to(dt), ht, vt.to(dt))
+                got = label_join_rowmin(*args)
+                want = ref.label_join_rowmin_ref(*args)
+                torch.cuda.synchronize()
+                require(got.dtype == torch.float32 and torch.equal(got, want),
+                        f"rowmin != twin at {name} distances, {what} B={B}, "
+                        f"L={L}")
+                if what == "main-path":
+                    narrow_rows[(name, L)] = args
+    print(f"check: label_join_rowmin == twin with bf16 and f16 distances "
+          f"(float32 out) at B = {B}, L in {bx.widths}, synthetic and "
+          f"main-path rows")
     tile_args, tile_dense = {}, {}
     tile_err = 0.0
     for gb, vs in ((sbx, np.asarray(sgraph.nodes)), (gbx, verts)):
@@ -679,7 +858,14 @@ def main() -> None:
           f"outputs ({len(s)} queries)")
     spread_and_profile(gsrv, s, t)
 
-    # -- 9. kernel times beside the twins' and the bound ----------------------
+    # -- 9. quantized path: rooms-M bf16/u16, then f16 answers ---------------
+    quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
+                   by_path)
+
+    # -- 10. a device-budgeted bf16 artifact ----------------------------------
+    budgeted_artifact(scene, graph, bx, s, t, qs, dev)
+
+    # -- 11. kernel times beside the twins' and the bound ---------------------
     def bound(nbytes: float, ops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         return 1e3 * max(tb, to), ("bytes" if tb > to else "operations")
@@ -726,13 +912,14 @@ def main() -> None:
         ms, wrap, plain = times(lambda: label_join_rowmin(*args),
                                 lambda: ref.label_join_rowmin_ref(*args),
                                 "label_join_rowmin_kernel")
-        b_ms, by = bound(join_bytes(Bj, L), 0)
+        nbytes = join_bytes(Bj, L, args[1].element_size())
+        b_ms, by = bound(nbytes, 0)
         dense_ms, _ = bound(0, join_dense_ops(Bj, L))
-        print(f"time: label_join_rowmin {what} B={Bj} L={L}: kernel "
-              f"{ms:.5f} ms (wrapper {wrap:.5f} ms), twin {plain:.5f} ms, "
-              f"bound {b_ms:.5f} ms ({by}: {join_bytes(Bj, L)} bytes; the "
-              f"dense join's {join_dense_ops(Bj, L)} operations "
-              f"{dense_ms:.5f} ms)")
+        print(f"time: label_join_rowmin {what} B={Bj} L={L} "
+              f"{args[1].dtype}: kernel {ms:.5f} ms (wrapper {wrap:.5f} "
+              f"ms), twin {plain:.5f} ms, bound {b_ms:.5f} ms ({by}: "
+              f"{nbytes} bytes; the dense join's {join_dense_ops(Bj, L)} "
+              f"operations {dense_ms:.5f} ms)")
         return (L, ms, plain, b_ms, by)
 
     tile_rows = []
@@ -740,11 +927,14 @@ def main() -> None:
         seg_time("synthetic", args)
     for args in join_args.values():
         join_time("synthetic", args)
-    main_seg, main_join = [], []
+    main_seg, main_join, narrow_ms = [], [], {}
     for w, (fold_s, fold_t, covis, join) in main_ops.items():
         main_seg.append(seg_time(f"main-path fold s W={w}", fold_s))
         seg_time(f"main-path fold t W={w}", fold_t)
         main_join.append(join_time(f"main-path W={w}", join))
+        for name in ("bf16", "f16"):
+            narrow_ms[name] = join_time(f"main-path W={w}",
+                                        narrow_rows[(name, w)])[1]
     main_seg.insert(0, seg_time(f"main-path covis W={max(main_ops)}",
                                 main_ops[max(main_ops)][2]))
 
@@ -811,10 +1001,11 @@ def main() -> None:
         record("segvis", "src/repro_torch/kernels/csrc/segvis.cu",
                "src/repro/kernels/segvis.py:50", main_seg, seg_err,
                f"main-path fold N={main_seg[-1][0]},E={E}"),
-        record("label_join_rowmin",
-               "src/repro_torch/kernels/csrc/label_join.cu",
-               "src/repro/kernels/label_join.py:33", main_join, join_err,
-               f"main-path B={B},L={main_join[-1][0]}"),
+        dict(record("label_join_rowmin",
+                    "src/repro_torch/kernels/csrc/label_join.cu",
+                    "src/repro/kernels/label_join.py:33", main_join,
+                    join_err, f"main-path B={B},L={main_join[-1][0]}"),
+             ms_by_dtype={"float32": main_join[-1][1], **narrow_ms}),
         record("segvis_tiles", "src/repro_torch/kernels/csrc/segvis_tiles.cu",
                "src/repro/kernels/segvis.py:124", tile_rows, tile_err,
                "N={1},S={0}".format(*tile_rows[-1][0])),

@@ -1,14 +1,16 @@
 """Host index building (numpy, float64) and the device layout + query."""
 
 from .compression import (compress, compress_incremental,  # noqa: F401
-                          compress_to_fraction)
+                          compress_to_device_budget, compress_to_fraction)
 from .edgegrid import (EdgeGrid, build_edge_grid,          # noqa: F401
                        gather_edge_tiles, plan_grid, segvis_grid)
 from .grid import EHLIndex, build_ehl                      # noqa: F401
 from .hublabel import build_hub_labels                     # noqa: F401
 from .maps import make_map                                 # noqa: F401
-from .packed import (BucketedIndex, bucketed_from_numpy,   # noqa: F401
-                     pack_bucketed, query_batch_bucketed)
+from .packed import (LAYOUT_F32, BucketedIndex,            # noqa: F401
+                     SlabLayout, bucketed_device_bytes,
+                     bucketed_from_numpy, pack_bucketed,
+                     query_batch_bucketed, slab_layout)
 from .query import path_length, query, unwind_path         # noqa: F401
 from .visgraph import build_visgraph                       # noqa: F401
 from .workload import uniform_queries                      # noqa: F401

@@ -36,6 +36,7 @@ class CompressionStats:
     merges: int
     regions: int
     hit_single_region: bool
+    device_bytes: int | None = None   # set by compress_to_device_budget
 
 
 def jaccard(a: np.ndarray, b: np.ndarray) -> float:
@@ -175,3 +176,53 @@ def compress_incremental(index: EHLIndex, budget_bytes: int,
     """
     return compress(index, budget_bytes, cell_scores=cell_scores,
                     alpha=alpha, verbose=verbose)
+
+
+def compress_to_device_budget(index: EHLIndex, device_budget_bytes: int,
+                              cell_scores: np.ndarray | None = None,
+                              alpha: float = 0.0, lane: int = 128,
+                              max_rounds: int = 16,
+                              verbose: bool = False,
+                              layout=None) -> CompressionStats:
+    """Merge until the packed *bucketed artifact* fits ``device_budget_bytes``.
+
+    Algorithm 1's budget constrains host label memory; what serving pays is
+    ``BucketedIndex.device_bytes()`` — labels plus bucket padding, mapper,
+    indirection and edge tensors.  Outer loop: measure the analytic device
+    footprint (``bucketed_device_bytes``, host arithmetic, no device
+    tensors), derive a proportional label-byte target, resume the
+    incremental merge, repeat until the artifact fits or one region
+    remains.
+
+    ``layout``: the :class:`~repro_torch.core.packed.SlabLayout` the
+    artifact will be packed with (default f32).  A quantized layout packs
+    ~3x more labels into the same budget, so the same device budget admits
+    a finer region partition — the dtype is decided before merging.
+    """
+    from .packed import LAYOUT_F32, bucketed_device_bytes
+
+    if layout is None:
+        layout = LAYOUT_F32
+    initial = index.label_memory()
+    merges = 0
+    hit_single = False
+    if cell_scores is not None:
+        rescore_regions(index, cell_scores)
+    for _ in range(max_rounds):
+        dev = bucketed_device_bytes(index, lane, layout=layout)
+        if dev <= device_budget_bytes or len(index.regions) <= 1:
+            break
+        # labels shrink, fixed overhead (mapper/edges) doesn't: aim the label
+        # budget proportionally below the overshoot, with a 5% safety margin
+        ratio = min(0.95 * device_budget_bytes / dev, 0.95)
+        target = int(index.label_memory() * ratio)
+        st = compress(index, target, alpha=alpha, verbose=verbose)
+        merges += st.merges
+        if st.hit_single_region:
+            hit_single = True
+            break
+    return CompressionStats(
+        initial_bytes=initial, final_bytes=index.label_memory(),
+        budget=device_budget_bytes, merges=merges,
+        regions=len(index.regions), hit_single_region=hit_single,
+        device_bytes=bucketed_device_bytes(index, lane, layout=layout))

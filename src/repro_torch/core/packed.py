@@ -29,7 +29,28 @@ min or argmin).  ``use_kernels`` picks the Hopper kernels (``kernels.ops``,
 which run the twins on CPU tensors) or the plain twins (``kernels.ref``)
 directly.
 
-Everything on the device is float32/int32; the host oracle is float64.
+Everything the query computes is float32/int32; the host oracle is
+float64.
+
+**Quantized slabs (DESIGN.md §11).**  A :class:`SlabLayout` other than
+``LAYOUT_F32`` stores the label slabs narrow: distances as bf16/f16 (per
+bucket back to f32 when a finite distance would overflow), hub and via ids
+delta-encoded per row into 2-byte slots against int32 row bases (per bucket
+back to raw int32 when a row's id range exceeds 0xFFFE), and the per-slot
+``via_xy`` plane replaced by one shared ``[V, 2]`` vertex table.  20 bytes
+a slot become 6.  The 2-byte ids are stored as ``torch.int16`` holding the
+u16 bit pattern (pad 0xFFFF reads as -1), on every device alike, since
+int16 gathers and compares run everywhere; the gather decodes them to
+exact int32 (:func:`_decode_ids`) and widens the distances, so the fold,
+the join and the kernels see float32/int32 as on the f32 layout.
+Distances come back within ``2*qerr`` of the f32 engine; argmin winners
+equal the f32 engine's bit for bit through the residual rescue: the argmin
+join flags rows whose margin is within the quantization error
+(:func:`_join_masked` ``qerr2``), and those rows are answered again with
+the exact f32 distance rows of the host-side :class:`ResidualTable`
+(:func:`rescue_exact`, :func:`splice_rescue`).  The encoders are host
+numpy (bf16 through torch's own conversion on the CPU), so the slabs equal
+the reference's byte for byte.
 """
 
 from __future__ import annotations
@@ -39,10 +60,132 @@ import dataclasses
 import numpy as np
 import torch
 
-from .edgegrid import EdgeGrid, build_edge_grid, plan_grid, segvis_grid
+from .edgegrid import (EdgeGrid, build_edge_grid, ell_bytes, plan_grid,
+                       segvis_grid)
 from .grid import EHLIndex
 
 HUB_PAD = np.int32(2 ** 30)     # sorts after every real hub id
+U16_PAD = 0xFFFF                # delta-encoded pad sentinel (u16 id slabs)
+# device storage of the u16 delta ids: the same 2 bytes as int16, where the
+# pad 0xFFFF reads as -1
+U16_STORAGE = torch.int16
+_DIST_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                "f16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabLayout:
+    """On-device slab dtypes.
+
+    ``dist``: f32 | bf16 | f16 — label-distance storage dtype.
+    ``ids``:  i32 | u16       — hub/via id storage (u16 = per-row delta).
+
+    The f32/i32 default is the float32 layout; any quantized layout also
+    drops the per-slot ``via_xy`` pair in favour of the shared vertex
+    table.
+    """
+
+    dist: str = "f32"
+    ids: str = "i32"
+
+    def __post_init__(self):
+        if self.dist not in _DIST_DTYPES:
+            raise ValueError(f"unknown distance dtype {self.dist!r}")
+        if self.ids not in ("i32", "u16"):
+            raise ValueError(f"unknown id dtype {self.ids!r}")
+
+    @property
+    def quantized(self) -> bool:
+        return self.dist != "f32" or self.ids != "i32"
+
+    @property
+    def dist_dtype(self) -> torch.dtype:
+        return _DIST_DTYPES[self.dist]
+
+
+LAYOUT_F32 = SlabLayout()
+
+
+def slab_layout(name: str) -> SlabLayout:
+    """CLI spelling -> layout: 'f32'/'off' | 'bf16' | 'f16'."""
+    if name in ("f32", "off", "none", ""):
+        return LAYOUT_F32
+    if name in ("bf16", "f16"):
+        return SlabLayout(dist=name, ids="u16")
+    raise ValueError(f"unknown slab layout {name!r} (f32 | bf16 | f16)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutBytes:
+    """Analytic byte costs of a :class:`SlabLayout` (see :func:`dtype_bytes`)."""
+    per_slot: int               # bytes per label slot (slab area term)
+    per_row: int                # bytes per slab row (delta-encoding bases)
+    per_vertex: int             # bytes per graph vertex (shared xy table)
+
+
+def dtype_bytes(layout: SlabLayout = LAYOUT_F32) -> LayoutBytes:
+    """Per-slot/per-row/per-vertex bytes of a layout: the one source of the
+    byte math of :func:`bucketed_device_bytes`.  Assumes no per-bucket
+    fallback (the realized ``device_bytes()`` is authoritative when a
+    bucket overflowed its narrow dtype)."""
+    if not layout.quantized:
+        return LayoutBytes(per_slot=4 + 8 + 4 + 4,  # hub + xy + d + vid
+                           per_row=0, per_vertex=0)
+    id_b = 2 if layout.ids == "u16" else 4
+    dist_b = layout.dist_dtype.itemsize
+    return LayoutBytes(per_slot=2 * id_b + dist_b,  # hub_enc + d + via_enc
+                       per_row=(8 if layout.ids == "u16" else 0),
+                       per_vertex=8)                # shared [V, 2] f32 table
+
+
+class ResidualTable:
+    """Host-side exact f32 distance rows — the residual the rescue reads.
+
+    Per bucket, the pre-quantization float32 ``via_d`` slab plus int32
+    routing mirrors (mapper / region -> bucket / row), ~4 bytes per label
+    slot of host memory.  Only *distances* are kept: the device slabs
+    already decode hub/via ids to their exact int32 values, so the rescue
+    only has to replace the quantized distance term
+    (:func:`gather_masked_exact`).  Host-resident, never uploaded whole —
+    ambiguous batches gather [B, W] rows and ship just those.
+    """
+
+    def __init__(self, d_slabs, region_bucket, region_row, mapper,
+                 widths, nx: int, ny: int, cell_size: float):
+        self.d = [np.ascontiguousarray(np.asarray(a, np.float32))
+                  for a in d_slabs]
+        self.region_bucket = np.asarray(region_bucket, np.int32)
+        self.region_row = np.asarray(region_row, np.int32)
+        self.mapper = np.asarray(mapper, np.int32)
+        self.widths = tuple(int(w) for w in widths)
+        self.nx, self.ny = int(nx), int(ny)
+        self.cell_size = float(cell_size)
+
+    def locate(self, pts: np.ndarray) -> np.ndarray:
+        """[B] region ids — the same float32 floor-divide as
+        :func:`locate_regions`, so host rows match device gathers exactly."""
+        p = np.asarray(pts, np.float32)
+        cs = np.float32(self.cell_size)
+        ix = np.clip((p[:, 0] / cs).astype(np.int32), 0, self.nx - 1)
+        iy = np.clip((p[:, 1] / cs).astype(np.int32), 0, self.ny - 1)
+        return self.mapper[iy * self.nx + ix]
+
+    def gather_d(self, regions: np.ndarray, width: int) -> np.ndarray:
+        """[B, width] exact f32 distance rows, inf-padded — the host mirror
+        of the distance plane of :func:`_gather_bucketed`."""
+        regions = np.asarray(regions)
+        out = np.full((len(regions), width), np.inf, np.float32)
+        b = self.region_bucket[regions]
+        r = self.region_row[regions]
+        for k, w in enumerate(self.widths):
+            if w > width:
+                continue        # wider buckets stay padding, as on device
+            m = b == k
+            if m.any():
+                rows = np.minimum(r[m], self.d[k].shape[0] - 1)
+                out[np.nonzero(m)[0][:, None],
+                    np.arange(w)[None, :]] = self.d[k][rows]
+        return out
 
 
 def resolve_device(device) -> torch.device:
@@ -74,7 +217,7 @@ def bucket_width(n_labels: int, lane: int = 128) -> int:
 
 @dataclasses.dataclass
 class BucketedIndex:
-    """Width-bucketed layout: one dense float32 slab per label width.
+    """Width-bucketed layout: one dense slab per label width.
 
     Region ``r`` lives at ``(region_bucket[r], region_row[r])``; slab ``k``
     has shape ``[R_k, widths[k]]``.  The mapper resolves cells to region ids
@@ -82,9 +225,10 @@ class BucketedIndex:
     """
 
     hub_ids: tuple          # per bucket: [R_k, W_k] int32 (HUB_PAD pads)
-    via_xy: tuple           # per bucket: [R_k, W_k, 2] float32
-    via_d: tuple            # per bucket: [R_k, W_k] float32 (+inf pads)
-    via_ids: tuple          # per bucket: [R_k, W_k] int32 (-1 pads)
+    #                         or u16 delta bits as int16 (§11)
+    via_xy: tuple           # per bucket: [R_k, W_k, 2] float32 (or () §11)
+    via_d: tuple            # per bucket: [R_k, W_k] f32/bf16/f16 (+inf pads)
+    via_ids: tuple          # per bucket: [R_k, W_k] int32 (-1 pads) or u16
     mapper: torch.Tensor    # [C] int32 cell -> region id
     region_bucket: torch.Tensor     # [R] int32 region id -> bucket
     region_row: torch.Tensor        # [R] int32 region id -> row in its slab
@@ -99,6 +243,14 @@ class BucketedIndex:
     height: float
     widths: tuple           # per-bucket label width, strictly increasing
     grid: EdgeGrid | None = None    # edge-grid pruning (DESIGN.md §10)
+    # quantized-layout extras (§11) — all None/() under the f32 layout
+    vert_xy: torch.Tensor | None = None     # [V, 2] f32 shared vertex table
+    hub_base: tuple = ()                    # per bucket: [R_k] i32 row base
+    vid_base: tuple = ()                    # per bucket: [R_k] i32 row base
+    qerr: torch.Tensor | None = None        # f32 scalar max |f32(dq) - d|
+    layout: SlabLayout = LAYOUT_F32
+    residual: ResidualTable | None = dataclasses.field(
+        default=None, repr=False, compare=False)   # host-side, not uploaded
 
     @property
     def device(self) -> torch.device:
@@ -115,11 +267,13 @@ class BucketedIndex:
     def device_bytes(self) -> int:
         slabs = sum(a.numel() * a.element_size()
                     for group in (self.hub_ids, self.via_xy, self.via_d,
-                                  self.via_ids)
+                                  self.via_ids, self.hub_base, self.vid_base)
                     for a in group)
         fixed = sum(a.numel() * a.element_size() for a in
                     (self.mapper, self.region_bucket, self.region_row,
                      self.edges_a, self.edges_b, self.edges_c))
+        if self.vert_xy is not None:
+            fixed += self.vert_xy.numel() * self.vert_xy.element_size()
         return (int(slabs) + int(fixed)
                 + (self.grid.device_bytes() if self.grid else 0))
 
@@ -128,12 +282,17 @@ class BucketedIndex:
         out = []
         for k, w in enumerate(self.widths):
             hub = self.hub_ids[k]
-            used = int((hub != int(HUB_PAD)).sum())
+            used = int(_used_mask(hub).sum())
             total = hub.numel()
             out.append(dict(bucket=k, width=w, regions=hub.shape[0],
                             used_slots=used, total_slots=total,
                             waste=1.0 - used / max(1, total)))
         return out
+
+    def quant_stats(self) -> dict:
+        """Realized quantization record (fallbacks are loud, not silent)."""
+        return _quant_stats(self.layout, self.hub_ids, self.via_d,
+                            self.via_ids, self.qerr)
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +320,118 @@ def _alloc_slab(rows: int, width: int):
             np.zeros((rows, width, 2), dtype=np.float32),
             np.full((rows, width), np.inf, dtype=np.float32),
             np.full((rows, width), -1, dtype=np.int32))
+
+
+# ---------------------------------------------------------------------------
+# quantized slab encoding (DESIGN.md §11), host numpy
+# ---------------------------------------------------------------------------
+
+def _used_mask(hub: torch.Tensor) -> torch.Tensor:
+    """Real-label mask for either id encoding (u16 sentinel vs HUB_PAD)."""
+    if hub.dtype == U16_STORAGE:
+        return hub != -1                        # 0xFFFF as int16
+    return hub != int(HUB_PAD)
+
+
+def encode_delta_u16(ids: np.ndarray, valid: np.ndarray):
+    """Per-row delta encoding of an id slab into u16 + [R] i32 bases.
+
+    Returns ``(enc, base)`` with pad slots at the ``0xFFFF`` sentinel, or
+    ``(None, None)`` when any row's id range exceeds 65534 — the caller
+    must then keep the raw i32 slab (the loud per-bucket fallback).
+    """
+    ids = np.asarray(ids, np.int64)
+    any_valid = valid.any(axis=1)
+    lo = np.where(valid, ids, np.iinfo(np.int64).max).min(axis=1)
+    lo = np.where(any_valid, lo, 0)
+    hi = np.where(valid, ids, np.iinfo(np.int64).min).max(axis=1)
+    hi = np.where(any_valid, hi, 0)
+    if int((hi - lo).max(initial=0)) > U16_PAD - 1:
+        return None, None
+    enc = np.where(valid, ids - lo[:, None], U16_PAD)
+    return enc.astype(np.uint16), lo.astype(np.int32)
+
+
+def _narrow(d: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A float32 array rounded to ``dtype`` (round to nearest even), as a
+    CPU tensor: f16 through numpy's cast, bf16 through torch's."""
+    if dtype == torch.float16:
+        return torch.from_numpy(d.astype(np.float16))
+    return torch.from_numpy(d).to(dtype)
+
+
+def encode_dist(d: np.ndarray, dtype: torch.dtype) -> tuple:
+    """Quantize a f32 distance slab; returns ``(dq, qerr)``, ``dq`` a CPU
+    tensor of ``dtype``.
+
+    ``(None, 0.0)`` when any *finite* distance overflows to inf in the
+    narrow dtype (f16 tops out at 65504) — per-bucket fallback to f32.
+    +inf pads are representable in every dtype and round-trip exactly.
+    """
+    d = np.ascontiguousarray(np.asarray(d, np.float32))
+    with np.errstate(over="ignore"):
+        dq = _narrow(d, dtype)
+    back = dq.to(torch.float32).numpy()
+    finite = np.isfinite(d)
+    if np.any(finite & ~np.isfinite(back)):
+        return None, 0.0
+    err = np.abs(back[finite] - d[finite])
+    return dq, float(err.max(initial=0.0))
+
+
+def _u16_tensor(enc: np.ndarray) -> torch.Tensor:
+    """u16 delta ids as their device storage: the same bits as int16."""
+    return torch.from_numpy(np.array(enc, np.uint16).view(np.int16))
+
+
+def _quantize_slab(arrs, layout: SlabLayout):
+    """Encode one (hub, xy, d, vid) f32 slab into the quantized layout.
+
+    Returns CPU tensors ``(hub, d, vid, hub_base, vid_base)`` and ``qerr``:
+    ids u16-delta as int16 bits (or raw int32 on range overflow, per
+    bucket), distances in ``layout.dist_dtype`` (or float32 on
+    finite-overflow, per bucket).  The ``via_xy`` plane is dropped: it is
+    always ``vert_xy[via_id]`` (see ``EHLIndex.pack_region``), so the shared
+    vertex table replaces it exactly.
+    """
+    hub, _, d, vid = arrs
+    R = hub.shape[0]
+    zeros = np.zeros(R, np.int32)
+    hub_q, hub_base = torch.from_numpy(hub), zeros
+    vid_q, vid_base = torch.from_numpy(vid), zeros
+    if layout.ids == "u16":
+        enc, base = encode_delta_u16(hub, hub != HUB_PAD)
+        if enc is not None:
+            hub_q, hub_base = _u16_tensor(enc), base
+        enc, base = encode_delta_u16(vid, vid >= 0)
+        if enc is not None:
+            vid_q, vid_base = _u16_tensor(enc), base
+    d_q, qerr = torch.from_numpy(d), 0.0
+    if layout.dist != "f32":
+        dq, err = encode_dist(d, layout.dist_dtype)
+        if dq is not None:
+            d_q, qerr = dq, err
+    return (hub_q, d_q, vid_q, torch.from_numpy(hub_base),
+            torch.from_numpy(vid_base), qerr)
+
+
+def _quant_stats(layout: SlabLayout, hub_ids, via_d, via_ids, qerr) -> dict:
+    """Per-bucket realized encoding + fallback flags (never silent)."""
+    return dict(
+        layout=layout,
+        qerr=(float(qerr) if qerr is not None else 0.0),
+        id_fallback=tuple(h.dtype != U16_STORAGE for h in hub_ids)
+        if layout.ids == "u16" else (),
+        vid_fallback=tuple(v.dtype != U16_STORAGE for v in via_ids)
+        if layout.ids == "u16" else (),
+        dist_fallback=tuple(d.dtype != layout.dist_dtype for d in via_d)
+        if layout.dist != "f32" else ())
+
+
+def _vert_table(index: EHLIndex) -> np.ndarray:
+    """[V, 2] f32 shared vertex table — exactly the values the f32 packer
+    wrote per slot (``via_xy = graph.nodes[via]`` cast to float32)."""
+    return np.asarray(index.graph.nodes, np.float32)
 
 
 def _cell_mapper(index: EHLIndex, live: list) -> np.ndarray:
@@ -197,24 +468,41 @@ def _pack_edges(scene_or_index, lane: int):
     return ea, eb, ec
 
 
-def _maybe_grid(ea: np.ndarray, eb: np.ndarray, num_real: int, scene,
-                edge_grid: bool | None, dev: torch.device) -> EdgeGrid | None:
-    """Build the edge grid when forced or when pruning pays.
+def _grid_plan(ea: np.ndarray, eb: np.ndarray, num_real: int, scene,
+               edge_grid: bool | None):
+    """The plan ``(gnx, gny, gcell, M)`` of the edge grid the packer
+    attaches, or None for the dense path; host arithmetic only.
 
     ``edge_grid=None`` (auto) attaches the grid only when the per-segment
     gathered tile (``3 * max(gnx, gny) * M`` slots) is smaller than the
-    dense edge list; it decides host-side through :func:`plan_grid` before
-    building anything.  ``True``/``False`` force.
+    dense edge list.  ``True``/``False`` force.
     """
     if edge_grid is False:
         return None
-    if edge_grid is None:
-        gnx, gny, _, M = plan_grid(ea, eb, num_real, scene.width,
-                                   scene.height)
-        if 3 * max(gnx, gny) * M >= ea.shape[0]:
-            return None
+    plan = plan_grid(ea, eb, num_real, scene.width, scene.height)
+    gnx, gny, _, M = plan
+    if edge_grid is None and 3 * max(gnx, gny) * M >= ea.shape[0]:
+        return None
+    return plan
+
+
+def _maybe_grid(ea: np.ndarray, eb: np.ndarray, num_real: int, scene,
+                edge_grid: bool | None, dev: torch.device) -> EdgeGrid | None:
+    """Build the edge grid when :func:`_grid_plan` attaches one; it decides
+    before anything is built."""
+    if _grid_plan(ea, eb, num_real, scene, edge_grid) is None:
+        return None
     return build_edge_grid(ea, eb, num_real, scene.width, scene.height,
                            sentinel=ea.shape[0] - 1, device=dev)
+
+
+def _grid_bytes(index: EHLIndex, lane: int, edge_grid: bool | None) -> int:
+    """``device_bytes()`` of the grid the packer would attach, without
+    building it (the grid term of :func:`bucketed_device_bytes`)."""
+    ea, eb, _ = _pack_edges(index, lane)
+    plan = _grid_plan(ea, eb, index.scene.edges.shape[0], index.scene,
+                      edge_grid)
+    return 0 if plan is None else ell_bytes(plan[0], plan[1], plan[3])
 
 
 def plan_buckets(index: EHLIndex, lane: int = 128
@@ -231,8 +519,24 @@ def plan_buckets(index: EHLIndex, lane: int = 128
     return counts, widths, region_bucket
 
 
+def bucketed_device_bytes(index: EHLIndex, lane: int = 128,
+                          edge_grid: bool | None = None,
+                          layout: SlabLayout = LAYOUT_F32) -> int:
+    """What ``pack_bucketed(...).device_bytes()`` would be, without packing."""
+    counts, widths, region_bucket = plan_buckets(index, lane)
+    lb = dtype_bytes(layout)
+    slabs = sum(max(1, int((region_bucket == k).sum()))
+                * (w * lb.per_slot + lb.per_row)
+                for k, w in enumerate(widths))
+    Ep = padded_edge_count(index.scene.edges.shape[0], lane)
+    return (slabs + index.graph.num_nodes * lb.per_vertex
+            + index.mapper.size * 4 + 2 * len(counts) * 4
+            + 3 * Ep * 2 * 4 + _grid_bytes(index, lane, edge_grid))
+
+
 def pack_bucketed(index: EHLIndex, lane: int = 128,
                   edge_grid: bool | None = None,
+                  layout: SlabLayout = LAYOUT_F32,
                   device="cuda") -> BucketedIndex:
     """Freeze a host index into width-bucketed slabs on ``device``.
 
@@ -242,6 +546,10 @@ def pack_bucketed(index: EHLIndex, lane: int = 128,
 
     ``edge_grid``: ``None`` attaches the §10 edge grid when pruning pays,
     ``True``/``False`` force it on/off.
+
+    ``layout``: quantized layouts store distances narrow, ids u16-delta,
+    drop ``via_xy`` for the shared vertex table, and attach the host-side
+    :class:`ResidualTable` the exact-argmin rescue reads (DESIGN.md §11).
     """
     dev = resolve_device(device)
     live, packs = _host_packs(index)
@@ -262,14 +570,27 @@ def pack_bucketed(index: EHLIndex, lane: int = 128,
     ea, eb, ec = _pack_edges(index, lane)
     grid = _maybe_grid(ea, eb, index.scene.edges.shape[0], index.scene,
                        edge_grid, dev)
-    return _to_device(dict(
+    mapper = _cell_mapper(index, live)
+    planes = dict(
         hub_ids=[a[0] for a in slabs], via_xy=[a[1] for a in slabs],
         via_d=[a[2] for a in slabs], via_ids=[a[3] for a in slabs],
-        mapper=_cell_mapper(index, live), region_bucket=region_bucket,
+        mapper=mapper, region_bucket=region_bucket,
         region_row=region_row, edges_a=ea, edges_b=eb, edges_c=ec,
         nx=index.nx, ny=index.ny, cell_size=index.cell_size,
         width=index.scene.width, height=index.scene.height,
-        widths=widths, grid=grid), dev)
+        widths=widths, grid=grid)
+    if layout.quantized:
+        quant = [_quantize_slab(a, layout) for a in slabs]
+        planes.update(
+            hub_ids=[q[0] for q in quant], via_xy=[],
+            via_d=[q[1] for q in quant], via_ids=[q[2] for q in quant],
+            vert_xy=_vert_table(index), hub_base=[q[3] for q in quant],
+            vid_base=[q[4] for q in quant],
+            qerr=max((q[5] for q in quant), default=0.0), layout=layout,
+            residual=ResidualTable(
+                [a[2] for a in slabs], region_bucket, region_row, mapper,
+                widths, index.nx, index.ny, float(index.cell_size)))
+    return _to_device(planes, dev)
 
 
 _PLANES = ("mapper", "region_bucket", "region_row",
@@ -280,11 +601,27 @@ _DTYPES = dict(hub_ids=np.int32, via_xy=np.float32, via_d=np.float32,
                via_ids=np.int32, mapper=np.int32, region_bucket=np.int32,
                region_row=np.int32, edges_a=np.float32, edges_b=np.float32,
                edges_c=np.float32)
+_QUANT_EXTRAS = ("vert_xy", "hub_base", "vid_base", "qerr", "layout")
+
+
+def _put(a, dev: torch.device) -> torch.Tensor:
+    """A plane on ``dev`` in its device storage dtype, never aliasing the
+    input: u16 ids as their int16 bits, a 2-byte ``bfloat16`` numpy array
+    (another package's bf16, as raw bits) as torch.bfloat16."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, copy=True)
+    a = np.asarray(a)
+    if a.dtype == np.uint16:
+        return _u16_tensor(a).to(dev)
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        return torch.from_numpy(np.array(a).view(np.int16)) \
+            .view(torch.bfloat16).to(dev)
+    return torch.as_tensor(np.array(a), device=dev)
 
 
 def _to_device(planes: dict, dev: torch.device) -> BucketedIndex:
-    def put(a):                 # np.array copies: no aliasing of the input
-        return torch.as_tensor(np.array(a), device=dev)
+    def put(a):
+        return _put(a, dev)
 
     grid = planes.get("grid")
     if isinstance(grid, dict):
@@ -294,13 +631,24 @@ def _to_device(planes: dict, dev: torch.device) -> BucketedIndex:
                         gcell=float(grid["gcell"]),
                         sentinel=int(grid["sentinel"]),
                         eps=float(grid["eps"]))
+    extras = {}
+    layout = planes.get("layout", LAYOUT_F32)
+    if layout.quantized:
+        extras = dict(
+            vert_xy=put(planes["vert_xy"]),
+            hub_base=tuple(put(a) for a in planes["hub_base"]),
+            vid_base=tuple(put(a) for a in planes["vid_base"]),
+            qerr=torch.tensor(float(planes["qerr"]), dtype=torch.float32,
+                              device=dev),
+            layout=layout, residual=planes.get("residual"))
     return BucketedIndex(
         **{k: tuple(put(a) for a in planes[k]) for k in _SLABS},
         **{k: put(planes[k]) for k in _PLANES},
         nx=int(planes["nx"]), ny=int(planes["ny"]),
         cell_size=float(planes["cell_size"]), width=float(planes["width"]),
         height=float(planes["height"]),
-        widths=tuple(int(w) for w in planes["widths"]), grid=grid)
+        widths=tuple(int(w) for w in planes["widths"]), grid=grid,
+        **extras)
 
 
 def bucketed_from_numpy(planes: dict, device) -> BucketedIndex:
@@ -311,9 +659,21 @@ def bucketed_from_numpy(planes: dict, device) -> BucketedIndex:
     them, the static metadata as plain values.  ``grid`` is None or a dict
     of the edge grid's ``cell_ids``/``cell_len`` numpy planes and its static
     fields (``gnx, gny, gcell, sentinel, eps``).  Lets two packages answer
-    queries over the very same artifact.  Only the float32 layout is taken:
-    quantized slabs raise.
+    queries over the very same artifact.
+
+    ``layout`` (optional; a :class:`SlabLayout` or any object with its
+    ``dist``/``ids`` fields, such as the reference's) names a quantized
+    layout; without it the planes must be the float32 layout.  A quantized
+    artifact carries no ``via_xy`` slabs, per bucket ids as uint16 (or int32
+    where the packer fell back) and distances in the layout's dtype (or
+    float32; ``bfloat16`` as the 2-byte numpy dtype another package
+    writes), plus ``vert_xy``, ``hub_base``, ``vid_base`` and ``qerr``, and
+    optionally ``residual_d``, the exact float32 distance slabs the rescue
+    reads (without it the artifact answers, but cannot rescue argmin rows).
     """
+    layout = planes.get("layout")
+    layout = (LAYOUT_F32 if layout is None
+              else SlabLayout(dist=str(layout.dist), ids=str(layout.ids)))
     grid = planes.get("grid")
     if grid is not None:
         missing = {"cell_ids", "cell_len", *_GRID_STATIC} - set(grid)
@@ -329,6 +689,9 @@ def bucketed_from_numpy(planes: dict, device) -> BucketedIndex:
         if not (0 <= int(grid["sentinel"]) < num_edges
                 and 0 <= ids.min() and ids.max() < num_edges):
             raise ValueError("grid edge ids outside the packed edges")
+    if layout.quantized:
+        return _to_device(_quantized_planes(planes, layout),
+                          resolve_device(device))
     for k in _SLABS:
         if len(planes[k]) != len(planes["widths"]):
             raise ValueError(f"{k}: one slab per bucket expected")
@@ -337,6 +700,62 @@ def bucketed_from_numpy(planes: dict, device) -> BucketedIndex:
         if any(np.asarray(a).dtype != want for a in arrs):
             raise ValueError(f"{k} must be {np.dtype(want)} (float32 layout)")
     return _to_device(planes, resolve_device(device))
+
+
+def _quantized_planes(planes: dict, layout: SlabLayout) -> dict:
+    """Check a quantized artifact's planes (see :func:`bucketed_from_numpy`)
+    and return them with the layout and the residual table attached."""
+    missing = {"vert_xy", "hub_base", "vid_base", "qerr"} - set(planes)
+    if missing:
+        raise ValueError(f"quantized planes lack {sorted(missing)}")
+    if len(planes.get("via_xy", ())):
+        raise ValueError("quantized planes carry no via_xy slabs (the "
+                         "vertex table replaces them)")
+    nb = len(planes["widths"])
+    ids_ok = ("uint16", "int32") if layout.ids == "u16" else ("int32",)
+    dist_ok = ({"bf16": "bfloat16", "f16": "float16",
+                "f32": "float32"}[layout.dist], "float32")
+    for k, ok in (("hub_ids", ids_ok), ("via_ids", ids_ok),
+                  ("via_d", dist_ok), ("hub_base", ("int32",)),
+                  ("vid_base", ("int32",))):
+        if len(planes[k]) != nb:
+            raise ValueError(f"{k}: one slab per bucket expected")
+        for a, w in zip(planes[k], planes["widths"]):
+            a = np.asarray(a)
+            if a.dtype.name not in ok:
+                raise ValueError(f"{k} must be one of {ok} under {layout}, "
+                                 f"got {a.dtype}")
+            if k not in ("hub_base", "vid_base") and (
+                    a.ndim != 2 or a.shape[1] != w):
+                raise ValueError(f"{k} slabs must be [R_k, {w}]")
+    for k in range(nb):
+        R = np.asarray(planes["hub_ids"][k]).shape[0]
+        for name in ("via_d", "via_ids"):
+            if np.asarray(planes[name][k]).shape[0] != R:
+                raise ValueError(f"{name}[{k}] must have {R} rows")
+        for name in ("hub_base", "vid_base"):
+            if np.asarray(planes[name][k]).shape != (R,):
+                raise ValueError(f"{name}[{k}] must be [{R}]")
+    vert = np.asarray(planes["vert_xy"])
+    if vert.dtype != np.float32 or vert.ndim != 2 or vert.shape[1] != 2:
+        raise ValueError("vert_xy must be [V, 2] float32")
+    for k, want in _DTYPES.items():
+        if k not in _SLABS and np.asarray(planes[k]).dtype != want:
+            raise ValueError(f"{k} must be {np.dtype(want)}")
+    out = dict(planes, via_xy=[], layout=layout, residual=None)
+    resid = planes.get("residual_d")
+    if resid is not None:
+        if len(resid) != nb or any(
+                np.asarray(r).dtype != np.float32
+                or np.asarray(r).shape != np.asarray(d).shape
+                for r, d in zip(resid, planes["via_d"])):
+            raise ValueError("residual_d must be one float32 slab per bucket "
+                             "of the via_d slabs' shapes")
+        out["residual"] = ResidualTable(
+            resid, planes["region_bucket"], planes["region_row"],
+            planes["mapper"], planes["widths"], planes["nx"], planes["ny"],
+            float(planes["cell_size"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -371,14 +790,42 @@ def _segvis(p, q, bx: BucketedIndex, use_kernels: bool) -> torch.Tensor:
     return fn(p, q, bx.edges_a, bx.edges_b, bx.edges_c)
 
 
-def _gather_bucketed(bx: BucketedIndex, regions: torch.Tensor, bucket: int):
+def _decode_ids(enc: torch.Tensor, base: torch.Tensor, pad_val
+                ) -> torch.Tensor:
+    """u16 delta rows (int16 bits) + per-row bases -> exact int32 ids; an
+    int32 slab (the per-bucket fallback) passes through."""
+    if enc.dtype != U16_STORAGE:
+        return enc
+    wide = enc.to(torch.int32)
+    raw = base[:, None] + (wide & U16_PAD)
+    return torch.where(wide == -1, torch.full_like(raw, int(pad_val)), raw)
+
+
+def _via_xy_of(vid: torch.Tensor, vert_xy: torch.Tensor) -> torch.Tensor:
+    """The per-slot via coordinates from the shared vertex table.
+
+    Bitwise-equal to the f32 layout's ``via_xy`` plane: the packer writes
+    ``graph.nodes[via]`` (cast f32) per slot and zeros for pads, which is
+    exactly ``vert_xy[vid]`` masked at ``vid < 0``.
+    """
+    xy = vert_xy[torch.clamp(vid, 0, vert_xy.shape[0] - 1).long()]
+    return torch.where((vid >= 0)[..., None], xy, torch.zeros_like(xy))
+
+
+def _gather_bucketed(bx: BucketedIndex, regions: torch.Tensor, bucket: int,
+                     width: int | None = None):
     """Gather per-query labels from buckets <= ``bucket``, padded to its width.
 
     Regions living in a *wider* bucket than ``bucket`` come back as pure
     padding (HUB_PAD / inf) — the caller dispatches each query at the max
-    of its endpoint buckets.
+    of its endpoint buckets.  ``width`` (>= ``widths[bucket]``) pads the
+    gather beyond the bucket's own width with inert HUB_PAD/inf slots (the
+    rescue gathers at a given width).  Quantized slabs are decoded here:
+    ids back to exact int32 against the row bases, via coordinates from the
+    shared vertex table, distances widened to float32, so everything
+    downstream is the f32 layout's code.
     """
-    W = bx.widths[bucket]
+    W = bx.widths[bucket] if width is None else width
     B = regions.shape[0]
     dev = regions.device
     hub = torch.full((B, W), int(HUB_PAD), dtype=torch.int32, device=dev)
@@ -389,16 +836,27 @@ def _gather_bucketed(bx: BucketedIndex, regions: torch.Tensor, bucket: int):
     regions = regions.long()
     src_bucket = bx.region_bucket[regions]
     src_row = bx.region_row[regions].long()
+    quantized = bx.layout.quantized
     for k in range(bucket + 1):
         w = bx.widths[k]
         rows = torch.clamp(src_row, 0, bx.hub_ids[k].shape[0] - 1)
         sel = src_bucket == k
-        hub[:, :w] = torch.where(sel[:, None], bx.hub_ids[k][rows], hub[:, :w])
-        xy[:, :w] = torch.where(sel[:, None, None], bx.via_xy[k][rows],
-                                xy[:, :w])
-        vd[:, :w] = torch.where(sel[:, None], bx.via_d[k][rows], vd[:, :w])
-        vid[:, :w] = torch.where(sel[:, None], bx.via_ids[k][rows],
-                                 vid[:, :w])
+        if quantized:
+            hub_k = _decode_ids(bx.hub_ids[k][rows], bx.hub_base[k][rows],
+                                HUB_PAD)
+            vid_k = _decode_ids(bx.via_ids[k][rows], bx.vid_base[k][rows],
+                                -1)
+            xy_k = _via_xy_of(vid_k, bx.vert_xy)
+            vd_k = bx.via_d[k][rows].to(torch.float32)
+        else:
+            hub_k, xy_k, vd_k, vid_k = (bx.hub_ids[k][rows],
+                                        bx.via_xy[k][rows],
+                                        bx.via_d[k][rows],
+                                        bx.via_ids[k][rows])
+        hub[:, :w] = torch.where(sel[:, None], hub_k, hub[:, :w])
+        xy[:, :w] = torch.where(sel[:, None, None], xy_k, xy[:, :w])
+        vd[:, :w] = torch.where(sel[:, None], vd_k, vd[:, :w])
+        vid[:, :w] = torch.where(sel[:, None], vid_k, vid[:, :w])
     return hub, xy, vd, vid
 
 
@@ -419,13 +877,21 @@ def _mask_labels(labels, pts: torch.Tensor, bx: BucketedIndex,
 
 
 def _join_masked(masked_s, masked_t, s, t, covis, use_kernels: bool,
-                 want_argmin: bool):
+                 want_argmin: bool, qerr2=None):
     """Join half of Eq. 1-3 over visibility-masked labels.
 
     The join emits the row-min form ``rowmin[b,i] = vd_s[b,i] + min_{hub
     match j} vd_t[b,j]`` and the argmin pair is recovered with two O(L)
     reductions (ties resolve to the first index).  ``covis`` overrides with
     the direct Euclidean distance.
+
+    ``qerr2`` (quantized layouts only, with ``want_argmin``): the summed
+    per-side quantization error bounds.  A sixth ``amb`` [B] bool output
+    flags rows whose argmin margin is within the error bound — their
+    winner could differ from the f32 engine's, so the host rescues them
+    against the exact residual rows (DESIGN.md §11).  Rows with a unique
+    candidate (inf second-best) or no candidate at all (all-inf row) are
+    provably unambiguous and excluded.
     """
     from repro_torch.kernels import ops
 
@@ -448,7 +914,22 @@ def _join_masked(masked_s, masked_t, s, t, covis, use_kernels: bool,
     j = torch.argmin(vd_t_match, dim=-1)                # [B]
     via_s = torch.gather(vid_s, 1, i[:, None])[:, 0]
     via_t = torch.gather(vid_t, 1, j[:, None])[:, 0]
-    return d, covis, via_s, hub_i[:, 0], via_t
+    if qerr2 is None:
+        return d, covis, via_s, hub_i[:, 0], via_t
+
+    # exact-argmin ambiguity: two candidates can swap order in exact f32
+    # space only if their quantized margin is within twice the worst-case
+    # per-candidate perturbation (qerr2 plus a few ulps of f32 rounding)
+    L = rowmin.shape[-1]
+    iota = torch.arange(L, device=s.device)[None, :]
+    second_i = torch.where(iota == i[:, None], inf, rowmin).amin(dim=-1)
+    best_j = torch.gather(vd_t_match, 1, j[:, None])[:, 0]
+    second_j = torch.where(iota == j[:, None], inf, vd_t_match).amin(dim=-1)
+    eps = torch.finfo(torch.float32).eps
+    thr = 2.0 * qerr2 + (64.0 * eps) * torch.abs(d_label)
+    amb = ((torch.isfinite(second_i) & (second_i - d_label <= thr))
+           | (torch.isfinite(second_j) & (second_j - best_j <= thr)))
+    return d, covis, via_s, hub_i[:, 0], via_t, amb
 
 
 def _fold_endpoint(bx: BucketedIndex, pts: torch.Tensor, bucket: int,
@@ -462,13 +943,13 @@ def _fold_endpoint(bx: BucketedIndex, pts: torch.Tensor, bucket: int,
 
 def _join_endpoints(bx: BucketedIndex, masked_s, masked_t, s: torch.Tensor,
                     t: torch.Tensor, use_kernels: bool = False,
-                    want_argmin: bool = False):
+                    want_argmin: bool = False, qerr2=None):
     """Co-visibility + Eq. 1-3 join over folded endpoint sides."""
     s = s.to(torch.float32)
     t = t.to(torch.float32)
     covis = _segvis(s, t, bx, use_kernels)
     return _join_masked(masked_s, masked_t, s, t, covis, use_kernels,
-                        want_argmin)
+                        want_argmin, qerr2=qerr2)
 
 
 def query_batch_at_bucket(bx: BucketedIndex, s: torch.Tensor, t: torch.Tensor,
@@ -478,14 +959,98 @@ def query_batch_at_bucket(bx: BucketedIndex, s: torch.Tensor, t: torch.Tensor,
 
     Every query's endpoint regions must live in buckets <= ``bucket`` (i.e.
     ``bucket == max(endpoint buckets)`` after routing).  Returns d [B]
-    float32, or with ``want_argmin`` (d, covis, via_s, hub, via_t).
+    float32, or with ``want_argmin`` (d, covis, via_s, hub, via_t), and on a
+    quantized layout a sixth ``amb`` [B] bool: the rows to rescue
+    (:func:`rescue_exact`).
     """
     s = torch.as_tensor(s, dtype=torch.float32, device=bx.device)
     t = torch.as_tensor(t, dtype=torch.float32, device=bx.device)
     ms = _fold_endpoint(bx, s, bucket, use_kernels=use_kernels)
     mt = _fold_endpoint(bx, t, bucket, use_kernels=use_kernels)
+    qerr2 = (bx.qerr + bx.qerr
+             if bx.layout.quantized and want_argmin else None)
     return _join_endpoints(bx, ms, mt, s, t, use_kernels=use_kernels,
-                           want_argmin=want_argmin)
+                           want_argmin=want_argmin, qerr2=qerr2)
+
+
+def join_masked(masked_s, masked_t, s: torch.Tensor, t: torch.Tensor,
+                covis: torch.Tensor, use_kernels: bool = False,
+                want_argmin: bool = False, qerr2=None):
+    """Eq. 1-3 join over visibility-masked label triples (both sides [B, W])
+    with a given co-visibility bit: the join half of
+    :func:`query_batch_at_bucket`, which the rescue runs on exact rows.
+    ``qerr2``: see :func:`_join_masked`."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=masked_s[0].device)
+    t = torch.as_tensor(t, dtype=torch.float32, device=masked_s[0].device)
+    return _join_masked(masked_s, masked_t, s, t, covis.to(torch.bool),
+                        use_kernels, want_argmin, qerr2=qerr2)
+
+
+# ---------------------------------------------------------------------------
+# quantized layouts: exact-argmin rescue (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+
+def gather_masked_exact(bx: BucketedIndex, pts: torch.Tensor,
+                        d_exact: torch.Tensor, width: int,
+                        use_kernels: bool = False):
+    """Rescue gather: quantized slabs with the exact f32 distance rows.
+
+    ``d_exact`` is the [B, width] residual gather
+    (:meth:`ResidualTable.gather_d`) for these points.  Ids and via
+    coordinates decode exactly from the device slabs, so substituting the
+    exact distances makes the returned masked triple bitwise-identical to
+    the f32 engine's visibility fold — the rescue join then reproduces the
+    f32 argmin exactly.
+    """
+    pts = pts.to(torch.float32)
+    regions = locate_regions(bx, pts)
+    bucket = max((k for k, w in enumerate(bx.widths) if w <= width),
+                 default=0)
+    hub, xy, _, vid = _gather_bucketed(bx, regions, bucket, width)
+    return _mask_labels((hub, xy, d_exact.to(torch.float32), vid), pts, bx,
+                        use_kernels)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def rescue_exact(bx: BucketedIndex, s, t, width: int, covis,
+                 use_kernels: bool = False):
+    """Re-answer a batch with exact distances (host residual -> device).
+
+    Full-batch recomputation at the quantized run's shapes; the caller
+    splices only the ambiguous rows.  ``covis`` is the quantized run's
+    co-visibility bit — pure geometry, identical in both layouts.  Returns
+    the exact 5-tuple.
+    """
+    res = bx.residual
+    if res is None:
+        raise ValueError("rescue_exact needs a quantized index with its "
+                         "ResidualTable attached")
+    s = _host(s).astype(np.float32)
+    t = _host(t).astype(np.float32)
+    ds = res.gather_d(res.locate(s), width)
+    dt = res.gather_d(res.locate(t), width)
+    dev = bx.device
+    st, tt = torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
+    ms = gather_masked_exact(bx, st, torch.from_numpy(ds).to(dev), width,
+                             use_kernels=use_kernels)
+    mt = gather_masked_exact(bx, tt, torch.from_numpy(dt).to(dev), width,
+                             use_kernels=use_kernels)
+    return join_masked(ms, mt, st, tt, covis, use_kernels=use_kernels,
+                       want_argmin=True)
+
+
+def splice_rescue(quant6, exact5) -> tuple:
+    """Host splice: overwrite ambiguous rows of the quantized answers with
+    the exact rescue rows.  Returns the engine's plain 5-tuple (numpy)."""
+    *quant5, amb = quant6
+    outs = [_host(a).copy() for a in quant5]
+    m = _host(amb)
+    for o, e in zip(outs, exact5):
+        o[m] = _host(e)[m]
+    return tuple(outs)
 
 
 def dispatch_buckets(bx: BucketedIndex, s, t) -> np.ndarray:
@@ -515,8 +1080,16 @@ def query_batch_bucketed(bx: BucketedIndex, s, t, use_kernels: bool = False,
         res = query_batch_at_bucket(bx, s[m], t[m], bucket=int(k),
                                     use_kernels=use_kernels,
                                     want_argmin=want_argmin)
+        if want_argmin and bx.layout.quantized:
+            # 6-tuple: rescue ambiguous-margin rows against the residual
+            if bool(res[5].any()):
+                exact = rescue_exact(bx, s[m], t[m], bx.widths[int(k)],
+                                     res[1], use_kernels=use_kernels)
+                res = splice_rescue(res, exact)
+            else:
+                res = res[:5]
         for o, r in zip(outs, res if want_argmin else (res,)):
-            o[m] = r.cpu().numpy()
+            o[m] = _host(r)
     return tuple(outs) if want_argmin else outs[0]
 
 

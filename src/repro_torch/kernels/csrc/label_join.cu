@@ -6,8 +6,15 @@
 //   out[b, i] = vd_s[b, i] + min_{j : hub_t[b, j] == hub_s[b, i]} vd_t[b, j]
 //
 // with +inf when no t-label shares the hub.  Hubs are int32 (pad 2^30),
-// distances float32 (+inf = invisible via or padded slot).  Twin:
+// distances float32, bfloat16 or float16, one type for both sides (+inf =
+// invisible via or padded slot); the output is float32.  Twin:
 // repro_torch/kernels/ref.py label_join_rowmin_ref (the dense L x L mask).
+//
+// Narrow distances: the kernel is a template on the load type T and widens
+// each value to float32 where it is read (staging in shared memory for
+// vd_t, the final add for vd_s), as the TPU kernel's wrapper and the twin
+// widen before they sum.  bf16 -> f32 and f16 -> f32 are exact, so from the
+// staging on everything is the float32 join, with the same bits as the twin.
 //
 // Precondition (every caller in the port meets it: core/packed.py
 // _mask_labels makes each distance a sum of norms and label distances, or
@@ -20,8 +27,9 @@
 // core/packed.py pads each slab row with HUB_PAD at its tail and
 // _gather_bucketed copies one slab row per query), so the t-labels that
 // match one hub form one contiguous run.  The sorted join reads each of the
-// 4 input planes once and writes one: 20 B L bytes, 0.00078 ms at B = 256,
-// L = 512; the dense join's 3 L^2 operations per row are gone.
+// 4 input planes once and writes one: 20 B L bytes (16 B L with 2-byte
+// distances), 0.00078 ms at B = 256, L = 512; the dense join's 3 L^2
+// operations per row are gone.
 //
 // Design: one block per row.  The t row is taken in chunks of up to `tile`
 // labels (the launcher sets tile = min(L, JOIN_MAX_TILE), dynamic shared
@@ -41,6 +49,8 @@
 // chunk may be sorted or not independently of the others: each chunk's
 // minimum is exact either way.  The last chunk adds vd_s with __fadd_rn.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -48,11 +58,23 @@
 // 16384 labels * 12 bytes = 192 KB of the 227 KB a block may use
 #define JOIN_MAX_TILE 16384
 
+// the wrapper's dtype codes (kernels/label_join.py _DTYPE_CODES)
+#define JOIN_F32 0
+#define JOIN_BF16 1
+#define JOIN_F16 2
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+template <typename T>
 __global__ void __launch_bounds__(JOIN_THREADS)
 label_join_rowmin_kernel(const int *__restrict__ hub_s,
-                         const float *__restrict__ vd_s,
+                         const T *__restrict__ vd_s,
                          const int *__restrict__ hub_t,
-                         const float *__restrict__ vd_t,
+                         const T *__restrict__ vd_t,
                          float *__restrict__ out, int L, int tile) {
     extern __shared__ int smem[];
     int *sh = smem;                                 // [tile] hubs
@@ -67,7 +89,7 @@ label_join_rowmin_kernel(const int *__restrict__ hub_s,
         bool unsorted = false;
         for (int k = threadIdx.x; k < n; k += blockDim.x) {
             sh[k] = hub_t[row + j0 + k];
-            buf0[k] = vd_t[row + j0 + k];
+            buf0[k] = widen(vd_t[row + j0 + k]);
         }
         __syncthreads();
         for (int k = threadIdx.x; k + 1 < n; k += blockDim.x)
@@ -104,7 +126,7 @@ label_join_rowmin_kernel(const int *__restrict__ hub_s,
                     else hi = mid;
                 }
                 if (lo < n && sh[lo] == h) m = fminf(m, runmin[lo]);
-                out[row + i] = last ? __fadd_rn(vd_s[row + i], m) : m;
+                out[row + i] = last ? __fadd_rn(widen(vd_s[row + i]), m) : m;
             }
         } else {
             for (int i = threadIdx.x; i < L; i += blockDim.x) {
@@ -112,31 +134,56 @@ label_join_rowmin_kernel(const int *__restrict__ hub_s,
                 float m = j0 == 0 ? INFINITY : out[row + i];
                 for (int k = 0; k < n; ++k)
                     if (sh[k] == h) m = fminf(m, runmin[k]);
-                out[row + i] = last ? __fadd_rn(vd_s[row + i], m) : m;
+                out[row + i] = last ? __fadd_rn(widen(vd_s[row + i]), m) : m;
             }
         }
     }
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  All
-// pointers are device pointers to contiguous [B, L] arrays.
+template <typename T>
+static int launch(const void *hub_s, const void *vd_s, const void *hub_t,
+                  const void *vd_t, void *out, int B, int L,
+                  cudaStream_t stream) {
+    const int tile = L < JOIN_MAX_TILE ? L : JOIN_MAX_TILE;
+    const size_t smem = (size_t)tile * 12;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            label_join_rowmin_kernel<T>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    label_join_rowmin_kernel<T><<<B, JOIN_THREADS, smem, stream>>>(
+        (const int *)hub_s, (const T *)vd_s, (const int *)hub_t,
+        (const T *)vd_t, (float *)out, L, tile);
+    return 0;
+}
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for an unknown dtype code.  All pointers are device
+// pointers to contiguous [B, L] arrays; vd_s and vd_t are of the type that
+// `dtype` names (JOIN_F32, JOIN_BF16 or JOIN_F16), out is float32.
 extern "C" int label_join_rowmin_launch(const void *hub_s, const void *vd_s,
                                         const void *hub_t, const void *vd_t,
-                                        void *out, int B, int L,
+                                        void *out, int B, int L, int dtype,
                                         void *stream) {
     if (B > 0 && L > 0) {
-        const int tile = L < JOIN_MAX_TILE ? L : JOIN_MAX_TILE;
-        const size_t smem = (size_t)tile * 12;
-        if (smem > 48 * 1024) {
-            const cudaError_t err = cudaFuncSetAttribute(
-                label_join_rowmin_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (err != cudaSuccess) return (int)err;
+        const cudaStream_t st = (cudaStream_t)stream;
+        int err;
+        switch (dtype) {
+        case JOIN_F32:
+            err = launch<float>(hub_s, vd_s, hub_t, vd_t, out, B, L, st);
+            break;
+        case JOIN_BF16:
+            err = launch<__nv_bfloat16>(hub_s, vd_s, hub_t, vd_t, out, B, L,
+                                        st);
+            break;
+        case JOIN_F16:
+            err = launch<__half>(hub_s, vd_s, hub_t, vd_t, out, B, L, st);
+            break;
+        default:
+            return (int)cudaErrorInvalidValue;
         }
-        label_join_rowmin_kernel<<<B, JOIN_THREADS, smem,
-                                   (cudaStream_t)stream>>>(
-            (const int *)hub_s, (const float *)vd_s, (const int *)hub_t,
-            (const float *)vd_t, (float *)out, L, tile);
+        if (err) return err;
     }
     return (int)cudaGetLastError();
 }

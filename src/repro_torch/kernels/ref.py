@@ -122,12 +122,16 @@ def label_join_rowmin_ref(hub_s: torch.Tensor, vd_s: torch.Tensor,
     """[B, L] — per s-label: vd_s[i] + min over t-labels with equal hub.
 
     The dense form of the paper's sorted merge-join (Eq. 3): the hub match
-    is an L x L equality mask.  float32 distances only (+inf = invisible or
-    padded slot); a row with no match gives +inf.
+    is an L x L equality mask.  Distances are float32, bfloat16 or float16
+    (+inf = invisible or padded slot); narrow ones are widened to float32
+    first, so the sum is always taken and returned in float32.  A row with
+    no match gives +inf.
     """
     label_join_rowmin_ref.calls += 1
+    vd_s = vd_s.to(torch.float32)
+    vd_t = vd_t.to(torch.float32)
     eq = hub_s[:, :, None] == hub_t[:, None, :]           # [B, L, L]
-    inf = torch.tensor(float("inf"), dtype=vd_t.dtype, device=vd_t.device)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=vd_t.device)
     matchmin = torch.where(eq, vd_t[:, None, :], inf).amin(dim=-1)
     return vd_s + matchmin
 

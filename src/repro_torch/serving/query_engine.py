@@ -12,18 +12,24 @@ keeps stats and scatters results; *how* a batch is answered is an engine
   (``kernels.ops``; on CPU tensors that dispatch runs the twins).
 
 The two device engines share the query core in ``core.packed`` and differ
-only in its ``use_kernels`` flag.
+only in its ``use_kernels`` flag.  On a quantized artifact (DESIGN.md §11)
+``batch_argmin`` rescues the rows the join flags as ambiguous against the
+exact residual rows, so its winners equal the f32 engine's bit for bit.
 """
 
 from __future__ import annotations
 
 import abc
+import time
 
 import numpy as np
+import torch
 
 from repro_torch.core.grid import EHLIndex
-from repro_torch.core.packed import (BucketedIndex, pack_bucketed,
-                                     query_batch_at_bucket)
+from repro_torch.core.packed import (LAYOUT_F32, BucketedIndex,
+                                     gather_masked_exact, join_masked,
+                                     pack_bucketed, query_batch_at_bucket,
+                                     rescue_exact, splice_rescue)
 from repro_torch.core.query import query as host_query
 
 
@@ -75,17 +81,26 @@ class HostEngine(QueryEngine):
 
 
 class DeviceEngine(QueryEngine):
-    """Batched engine over a :class:`BucketedIndex` on its device."""
+    """Batched engine over a :class:`BucketedIndex` on its device.
+
+    ``rescue_batches``/``rescue_rows``/``rescue_seconds`` count the argmin
+    batches a quantized artifact rescued, the ambiguous rows in them and
+    the host seconds the rescues took.
+    """
 
     use_kernels = False
     static_shapes = True    # fixed batch shapes: kernels see steady sizes
 
-    def __init__(self, index, device="cuda"):
+    def __init__(self, index, device="cuda", layout=LAYOUT_F32):
         if isinstance(index, EHLIndex):
-            index = pack_bucketed(index, device=device)
+            index = pack_bucketed(index, layout=layout, device=device)
         if not isinstance(index, BucketedIndex):
             raise TypeError(f"unsupported index artifact: {type(index)!r}")
         self.index = index
+        self.quantized = index.layout.quantized
+        self.rescue_batches = 0
+        self.rescue_rows = 0
+        self.rescue_seconds = 0.0
         # host-side routing table mirrors (see _route)
         self._np_mapper = index.mapper.cpu().numpy()
         self._np_bucket = index.region_bucket.cpu().numpy()
@@ -120,17 +135,47 @@ class DeviceEngine(QueryEngine):
 
     def batch_argmin(self, s, t, bucket: int = 0):
         res = self._run(s, t, bucket, want_argmin=True)
-        return tuple(r.cpu().numpy() for r in res)
+        if not self.quantized:
+            return tuple(r.cpu().numpy() for r in res)
+        # quantized: 6-tuple — rescue ambiguous-margin rows against the
+        # exact residual so argmin winners match the f32 engine bit for bit
+        # (one flag read decides)
+        amb = res[5].cpu().numpy()
+        if not amb.any():
+            return tuple(r.cpu().numpy() for r in res[:5])
+        t0 = time.perf_counter()
+        exact = rescue_exact(self.index, s, t, self.bucket_width(bucket),
+                             res[1], use_kernels=self.use_kernels)
+        out = splice_rescue((*res[:5], amb), exact)
+        self.rescue_seconds += time.perf_counter() - t0
+        self.rescue_batches += 1
+        self.rescue_rows += int(np.count_nonzero(amb))
+        return out
 
     def warmup(self, batch_size: int, want_argmin: bool = False) -> None:
         """Run every bucket once at the serving batch shape, so the kernels
         are built and loaded, and the device allocator has seen the serving
-        sizes, before live traffic."""
+        sizes, before live traffic.  On a quantized artifact the argmin
+        warmup also runs the rescue's exact gather and join once."""
         z = np.zeros((batch_size, 2), np.float32)
+        dev = self.index.device
         for b in range(self.num_buckets):
             self.batch(z, z, b)
             if want_argmin:
                 self.batch_argmin(z, z, b)
+                if self.quantized:
+                    W = self.bucket_width(b)
+                    zt = torch.zeros((batch_size, 2), dtype=torch.float32,
+                                     device=dev)
+                    d0 = torch.full((batch_size, W), float("inf"),
+                                    dtype=torch.float32, device=dev)
+                    ms = gather_masked_exact(self.index, zt, d0, W,
+                                             use_kernels=self.use_kernels)
+                    join_masked(ms, ms, zt, zt,
+                                torch.zeros(batch_size, dtype=torch.bool,
+                                            device=dev),
+                                use_kernels=self.use_kernels,
+                                want_argmin=True)
 
 
 class TorchEngine(DeviceEngine):
@@ -143,11 +188,13 @@ class CudaEngine(DeviceEngine):
     use_kernels = True
 
 
-def make_engine(index, backend: str = "cuda", device="cuda") -> QueryEngine:
+def make_engine(index, backend: str = "cuda", device="cuda",
+                layout=LAYOUT_F32) -> QueryEngine:
     """Engine factory.  ``index``: EHLIndex (host backend, or packed onto
     ``device`` for the device backends, which raises when ``device`` is
     CUDA and no card is present) or a BucketedIndex (served on the device
-    that holds it)."""
+    that holds it).  ``layout`` picks the slab dtypes when packing
+    (DESIGN.md §11)."""
     if backend == "host":
         if not isinstance(index, EHLIndex):
             raise TypeError("host backend needs the host-side EHLIndex")
@@ -156,4 +203,4 @@ def make_engine(index, backend: str = "cuda", device="cuda") -> QueryEngine:
         raise ValueError(f"unknown backend {backend!r} "
                          "(expected host | torch | cuda)")
     cls = CudaEngine if backend == "cuda" else TorchEngine
-    return cls(index, device=device)
+    return cls(index, device=device, layout=layout)

@@ -179,6 +179,40 @@ def test_rowmin_kernel_equals_twin_on_any_row(card, case):
     assert torch.equal(got, ref.label_join_rowmin_ref(*args))
 
 
+NARROW = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+@pytest.mark.parametrize("case", ["sorted_128", "sorted_512", "unsorted",
+                                  "padded_tail", "over_tile"])
+def test_rowmin_kernel_narrow_distances_equal_twin(card, dtype, case):
+    """bf16/f16 distances, widened at staging: float32 output equal to the
+    twin's, on sorted main-path widths and on rows that take the kernel's
+    dense chunk (unsorted) or span two chunks."""
+    if case.startswith("sorted"):
+        rows = _join_rows(np.random.default_rng(len(case)), 256,
+                          int(case.split("_")[1]), 96)
+    else:
+        rows = _join_case(case)
+    hs, vs, ht, vt = [torch.from_numpy(a).to(card) for a in rows]
+    vs, vt = vs.to(NARROW[dtype]), vt.to(NARROW[dtype])
+    got = label_join_rowmin(hs, vs, ht, vt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.label_join_rowmin_ref(hs, vs, ht, vt))
+
+
+def test_rowmin_wrapper_refuses_mixed_or_integer_distances(card):
+    h = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    v = torch.zeros((2, 8), device=card)
+    with pytest.raises(TypeError):
+        label_join_rowmin(h, v.bfloat16(), h, v.half())
+    with pytest.raises(TypeError):
+        label_join_rowmin(h, v.bfloat16(), h, v)
+    with pytest.raises(TypeError):
+        label_join_rowmin(h, v.int(), h, v.int())
+
+
 def test_wrappers_check_their_inputs(card):
     x = torch.zeros((4, 2), device=card)
     with pytest.raises(TypeError):
@@ -277,3 +311,36 @@ def test_cuda_engine_equals_torch_engine_on_card(card):
     b = PathServer(TorchEngine(bx), batch_size=64)._dispatch(s, t, True)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("layout", ["bf16", "f16"])
+def test_quantized_cuda_engine_equals_torch_engine(card, layout):
+    """rooms-S quantized slabs on the card: CudaEngine == TorchEngine on all
+    five outputs after the rescue, the winners equal the f32 CudaEngine's,
+    and serving launches both kernels."""
+    from repro_torch.core.packed import slab_layout
+    from repro_torch.serving import CudaEngine, PathServer, TorchEngine
+
+    scene = make_map("rooms-S", seed=1)
+    graph = build_visgraph(scene)
+    idx = build_ehl(scene, cell_size=2.0, graph=graph)
+    compress_to_fraction(idx, 0.2)
+    qbx = pack_bucketed(idx, layout=slab_layout(layout), device=card)
+    bx = pack_bucketed(idx, device=card)
+    qs = uniform_queries(scene, graph, 300, seed=5)
+    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    seg, join = segvis.launches, label_join_rowmin.launches
+    eng = CudaEngine(qbx)
+    a = PathServer(eng, batch_size=64)._dispatch(s, t, True)
+    assert segvis.launches > seg and label_join_rowmin.launches > join
+    assert eng.rescue_batches > 0
+    b = PathServer(TorchEngine(qbx), batch_size=64)._dispatch(s, t, True)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    c = PathServer(CudaEngine(bx), batch_size=64)._dispatch(s, t, True)
+    for x, y in zip(a[1:], c[1:]):
+        np.testing.assert_array_equal(x, y)
+    fin = np.isfinite(c[0])
+    assert np.array_equal(fin, np.isfinite(a[0]))
+    assert np.all(np.abs(a[0][fin] - c[0][fin])
+                  <= 2 * float(qbx.qerr) + 1e-6 * np.abs(c[0][fin]))

@@ -181,4 +181,7 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_reference(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+        # ml_dtypes ships with jax, not on the card's machine: the port
+        # rounds bf16 with torch
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path}: {mod}"

@@ -106,6 +106,22 @@ def test_join_counts(B, L):
     assert cs.join_dense_ops(B, L) == 3 * B * L * L
 
 
+@pytest.mark.parametrize("B,L", [(256, 512), (1, 1), (3, 1500)])
+def test_join_bytes_with_narrow_distances(B, L):
+    # hubs 4 + 4, distances 2 + 2, output 4 bytes a label
+    assert cs.join_bytes(B, L, 2) == 16 * B * L
+    assert cs.join_bytes(B, L, 4) == cs.join_bytes(B, L)
+
+
+def test_within_qerr_holds_the_quantized_bound():
+    b = np.array([10.0, 20.0, np.inf], np.float32)
+    assert cs.within_qerr(b + np.float32(0.5), b, 0.25)
+    assert not cs.within_qerr(b + np.float32(0.51), b, 0.25)
+    assert not cs.within_qerr(np.array([10.0, np.inf, np.inf], np.float32),
+                              b, 1.0)
+    assert cs.within_qerr(b, b, 0.0)
+
+
 def test_segvis_ops_per_pair_counts_the_hoisted_predicate():
     # 6 endpoint differences, 8 products, 4 signs x (3 ops + 2 compares)
     assert cs.SEGVIS_OPS_PER_PAIR == 34
