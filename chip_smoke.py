@@ -7,15 +7,32 @@ Builds the Hopper kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch twin (``torch.equal``) at every
 shape its path gives it, on contact tables, and on the main path's own
 operands (for every rooms-M bucket width W, the first 256 served queries
-that dispatch at W: their fold segments and masked label rows), then
-drives three serving paths, each with the launch counts set to 0 just
-before it and read just after:
+that dispatch at W: their fold segments and masked label rows), checks
+point location at a cell size that is not a power of two (``check: cell
+3.0``: rooms-S seed 1 at cell 3.0, points on and one float32 ulp below
+every cell boundary, located on the card where the host routing and the
+residual table locate them, served within 1e-4 of the float64 oracle),
+then drives six serving paths, each with the launch counts set to 0 just
+before it and read just after, and each with a ``warmup:`` line (nvcc
+builds, ctypes loads and cold shape keys met on live traffic after
+``warmup(paths=True)``, all required to be 0, and the allocator's segment
+count before and after):
 
 * the dense main path: rooms-M (seed 0, cell 2.0) compressed to 20% of its
   label memory, packed into width buckets on the card (the auto edge-grid
   policy leaves it dense), served by a ``CudaEngine`` behind
   ``PathServer(batch_size=256)`` for 2000 uniform queries (seed 33) plus
   ``query_paths`` on 64 of them (``segvis`` + ``label_join_rowmin``);
+* the single slab: the same index packed by ``pack_index`` (every batch
+  at the global width 512), whose device bytes must equal
+  ``slab_device_bytes`` and whose answers must equal the slab
+  ``TorchEngine``'s and the bucketed path's bit for bit; its bf16/u16
+  twin is checked once (answers only: distances within 2·qerr of the f32
+  slab, winners equal to it after the rescue);
+* the dense path through the continuous batcher: the same 2000 queries
+  submitted as one-query trickles and as bursts, then flushed and drained
+  (split-phase dispatch on CUDA streams), answers equal to the synchronous
+  path's bit for bit, distances and argmin;
 * the edge-grid path at the default policy: rooms-S (seed 0, cell 2.0,
   budget 0.2), where ``pack_bucketed`` attaches the grid by itself, served
   the same way (``segvis_tiles`` + ``label_join_rowmin``, no dense
@@ -83,6 +100,8 @@ BATCH, QUERIES, QUERY_SEED, PATHS, ORACLE = 256, 2000, 33, 64, 256
 GRID_MAP, GRID_SEED = "rooms-S", 0
 # segvis_grid's segment chunk: the largest N segvis_tiles is launched at
 TILE_CHUNK = 8192
+# queries per submit of the async path's bursts
+ASYNC_BURST = 250
 
 
 def card_line() -> str:
@@ -373,11 +392,38 @@ def rowmin_inputs(rng, B: int, L: int, dev, hubs: int = 96):
     return tuple(torch.from_numpy(x).to(dev) for x in (hs, vs, ht, vt))
 
 
-def drive(srv, s, t, index, kernels: dict, twins) -> dict:
+def cold_state() -> tuple:
+    """(cold shape keys, nvcc builds, ctypes loads, allocator segments
+    allocated) so far in this process."""
+    import torch
+
+    from repro_torch.core.packed import TRACES
+    from repro_torch.kernels import build
+
+    return (TRACES.count, sum(build.BUILDS.values()),
+            sum(build.LOADS.values()),
+            torch.cuda.memory_stats()["segment.all.allocated"])
+
+
+def report_warmup(what: str, before: tuple) -> None:
+    """The ``warmup:`` line: what live traffic met since ``before`` (taken
+    just after ``warmup(paths=True)``); builds, loads and cold shape keys
+    must all be 0, the allocator's segments are printed."""
+    after = cold_state()
+    cold, builds, loads = (a - b for a, b in zip(after[:3], before[:3]))
+    print(f"warmup: {what}: live traffic after warmup met {builds} builds, "
+          f"{loads} loads, {cold} cold shape keys; allocator segments "
+          f"allocated {before[3]} -> {after[3]}")
+    require(cold == builds == loads == 0,
+            f"{what}: live traffic met a build, load or cold shape")
+
+
+def drive(srv, s, t, index, kernels: dict, twins, label: str) -> dict:
     """One serving path as a user drives it: warmup (argmin path included),
     two ``query`` passes, ``query_paths`` on PATHS.  Every launch count and
     twin call count is set to 0 just before and read just after; the path
-    must launch each of ``kernels`` and call no twin."""
+    must launch each of ``kernels`` and call no twin, and its live traffic
+    must meet nothing cold (``report_warmup``)."""
     import torch
 
     for k in kernels.values():
@@ -391,6 +437,7 @@ def drive(srv, s, t, index, kernels: dict, twins) -> dict:
     stages: list = []
     srv.warmup(paths=True)
     snap("warmup")
+    warm = cold_state()
     d_first = srv.query(s, t)
     snap("pass 1")
     torch.cuda.synchronize()
@@ -402,6 +449,7 @@ def drive(srv, s, t, index, kernels: dict, twins) -> dict:
     dp, paths = srv.query_paths(s[:PATHS], t[:PATHS], host_index=index)
     torch.cuda.synchronize()
     snap("paths")
+    report_warmup(label, warm)
     launches = {n: k.launches for n, k in kernels.items()}
     calls = {f.__name__: f.calls for f in twins}
     prev = dict.fromkeys(kernels, 0)
@@ -548,7 +596,7 @@ def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
     print(f"path: {MAP} bf16/u16 quantized")
     eng = CudaEngine(qbx)
     srv = PathServer(eng, batch_size=BATCH)
-    run = drive(srv, s, t, index, kernels, twins)
+    run = drive(srv, s, t, index, kernels, twins, f"{MAP} bf16")
     by_path[f"{MAP} bf16"] = run["launches"]
     require(run["launches"]["segvis"] > 0
             and run["launches"]["label_join_rowmin"] > 0
@@ -636,6 +684,214 @@ def budgeted_artifact(scene, graph, bx, s, t, qs, dev) -> None:
           f"oracle on {ORACLE}: reachability equal, max rel err {err:.3e} "
           f"(2·qerr {2 * float(bbx.qerr):.6e}); reachable "
           f"{int(np.isfinite(d).sum())}/{len(d)}")
+
+
+def cell3_check(dev) -> None:
+    """``check: cell 3.0``: rooms-S seed 1 at budget 0.2 and cell 3.0 (not
+    a power of two), with queries whose one endpoint lies on a cell boundary
+    line (x = 3k at y = 30, y = 3k at x = 30) or one float32 ulp below it
+    and whose other is a free point of the narrowest bucket, both ways
+    round.  The card's ``locate_regions`` must equal the host routing
+    (``DeviceEngine._route``) and ``ResidualTable.locate`` on every
+    endpoint, for the bucketed layout and the single slab, and every query
+    the float64 oracle reaches must be served within 1e-4 of it."""
+    import torch
+
+    from repro_torch.core import (build_ehl, build_visgraph,
+                                  compress_to_fraction, make_map,
+                                  pack_bucketed, pack_index, uniform_queries)
+    from repro_torch.core.packed import locate_regions, slab_layout
+    from repro_torch.core.query import query as host_query
+    from repro_torch.serving import CudaEngine, PathServer
+
+    cell = 3.0
+    scene = make_map(GRID_MAP, seed=1)
+    graph = build_visgraph(scene)
+    idx = build_ehl(scene, cell_size=cell, graph=graph)
+    compress_to_fraction(idx, BUDGET)
+    bx = pack_bucketed(idx, device=dev)
+    eng = CudaEngine(bx)
+    lines = np.float32(cell * np.arange(1, idx.nx))
+    vals = np.concatenate([lines, np.nextafter(lines, np.float32(-np.inf))])
+    mid = np.full_like(vals, 30.0)
+    edge = np.concatenate([np.stack([vals, mid], 1),
+                           np.stack([mid, vals], 1)]).astype(np.float32)
+    free = uniform_queries(scene, graph, 400, seed=7).t.astype(np.float32)
+    free = free[eng._route(free) == 0][:len(edge)]
+    require(len(free) == len(edge), "too few free points in bucket 0")
+    s, t = np.concatenate([edge, free]), np.concatenate([free, edge])
+    pts = np.concatenate([s, t])
+    on_card = torch.from_numpy(pts).to(dev)
+    got = locate_regions(bx, on_card).cpu().numpy()
+    resid = pack_bucketed(idx, layout=slab_layout("bf16"),
+                          device="cpu").residual
+    require(np.array_equal(got, resid.locate(pts)),
+            "cell 3.0: card regions != ResidualTable.locate at "
+            f"{pts[got != resid.locate(pts)].tolist()}")
+    require(np.array_equal(bx.region_bucket.cpu().numpy()[got],
+                           eng._route(pts)),
+            "cell 3.0: card buckets != DeviceEngine._route")
+    rows = locate_regions(pack_index(idx, device=dev), on_card).cpu().numpy()
+    slab_resid = pack_index(idx, layout=slab_layout("bf16"),
+                            device="cpu").residual
+    require(np.array_equal(rows, slab_resid.locate(pts)),
+            "cell 3.0: card slab rows != the slab ResidualTable.locate")
+    d = PathServer(eng, batch_size=32).query(s, t)
+    truth = np.array([host_query(idx, a, b, want_path=False)[0]
+                      for a, b in zip(s, t)])
+    fin = np.isfinite(truth)
+    err = np.abs(d[fin] - truth[fin])
+    require(bool(np.all(err <= 1e-4)),
+            f"cell 3.0: served distance vs oracle, max err {err.max()}")
+    k = int(np.nonzero((s == np.float32([26.999998, 30.0])).all(1))[0][0])
+    print(f"check: cell 3.0: {len(pts)} endpoints (on and one ulp below "
+          f"every cell boundary, and free points) located on the card as "
+          f"DeviceEngine._route and ResidualTable.locate locate them "
+          f"(bucketed and slab); {int(fin.sum())} reachable queries within "
+          f"1e-4 of the float64 oracle (max err {float(err.max()):.3e}); "
+          f"s = (26.999998, 30): served {float(d[k]):.4f}, oracle "
+          f"{truth[k]:.4f}")
+
+
+def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
+              by_path: dict) -> None:
+    """The rooms-M index packed into one slab (``pack_index``, every batch
+    at the global width), driven as the other paths are; its answers must
+    equal the slab TorchEngine's and the bucketed path's bit for bit.  Then
+    the bf16/u16 slab's answers (distances within 2·qerr of the f32 slab,
+    winners equal to it after the rescue)."""
+    from repro_torch.core.packed import (pack_index, slab_device_bytes,
+                                         slab_layout)
+    from repro_torch.serving import CudaEngine, PathServer, TorchEngine
+
+    pk = pack_index(index, device=dev)
+    est = slab_device_bytes(index)
+    used, total = pk.label_slots()
+    print(f"bytes: {MAP} slab f32 artifact {pk.device_bytes()} device bytes "
+          f"(width {pk.label_width}, {pk.num_regions} rows, {used} of "
+          f"{total} label slots used), slab_device_bytes {est}; bucketed "
+          f"artifact {bx.device_bytes()} "
+          f"({pk.device_bytes() / bx.device_bytes():.4f}x it)")
+    require(est == pk.device_bytes(),
+            "slab_device_bytes != the slab artifact's device_bytes()")
+    print(f"path: {MAP} slab f32")
+    srv = PathServer(CudaEngine(pk), batch_size=BATCH)
+    run = drive(srv, s, t, index, kernels, twins, f"{MAP} slab")
+    by_path[f"{MAP} slab"] = run["launches"]
+    require(run["launches"]["segvis"] > 0
+            and run["launches"]["label_join_rowmin"] > 0
+            and run["launches"]["segvis_tiles"] == 0,
+            f"slab path launches: {run['launches']}")
+    got = check_answers(srv, PathServer(TorchEngine(pk), batch_size=BATCH),
+                        run, s, t, index, qs)
+    for name, a, b in zip(ANSWERS, got, dense_got):
+        require(np.array_equal(a, b),
+                f"slab vs bucketed CudaEngine output {name}")
+    print(f"check: {MAP} slab CudaEngine == bucketed CudaEngine on all 5 "
+          f"outputs ({len(s)} queries)")
+    spread_and_profile(srv, s, t)
+
+    qpk = pack_index(index, layout=slab_layout("bf16"), device=dev)
+    qerr = float(qpk.qerr)
+    eng = CudaEngine(qpk)
+    qgot = PathServer(eng, batch_size=BATCH)._dispatch(s, t,
+                                                       want_argmin=True)
+    require(within_qerr(qgot[0], got[0], qerr),
+            "bf16 slab distances beyond 2·qerr of the f32 slab")
+    for name, a, b in zip(ANSWERS[1:], qgot[1:], got[1:]):
+        require(np.array_equal(a, b), f"bf16 slab vs f32 slab winner {name}")
+    fin = np.isfinite(got[0])
+    print(f"check: {MAP} slab bf16/u16 ({qpk.device_bytes()} device bytes, "
+          f"qerr {qerr:.9g}): max |d - d_f32| "
+          f"{float(np.abs(qgot[0][fin] - got[0][fin]).max(initial=0.0)):.6e}"
+          f" (2·qerr {2 * qerr:.6e}); covis, via_s, hub, via_t equal the f32 "
+          f"slab's bit for bit; rescue: {eng.rescue_batches} batches, "
+          f"{eng.rescue_rows} rows (padding included), host "
+          f"{1e3 * eng.rescue_seconds:.3f} ms")
+
+
+def async_path(bx, dense_got, s, t, kernels, twins, by_path: dict) -> None:
+    """The dense path through the continuous batcher: the same queries
+    submitted as one-query trickles and as bursts, flushed and drained.
+    Answers must equal the synchronous path's bit for bit (distances and
+    argmin); prints the flush mix, the pipeline and queue peaks, us/query
+    through ``drain`` beside a synchronous pass of the same run, and one
+    profiled burst pass."""
+    import torch
+
+    from repro_torch.serving import CudaEngine, PathServer
+
+    print(f"path: {MAP} dense async")
+    srv = PathServer(CudaEngine(bx), batch_size=BATCH)
+    for k in kernels.values():
+        k.launches = 0
+    for f in twins:
+        f.calls = 0
+    srv.warmup(paths=True)
+    after_warmup = {n: k.launches for n, k in kernels.items()}
+    warm = cold_state()
+    n = len(s)
+    trickle = [(i, i + 1) for i in range(n)]
+    burst = [(i, min(n, i + ASYNC_BURST)) for i in range(0, n, ASYNC_BURST)]
+
+    def serve(chunks, argmin=False):
+        t0 = time.perf_counter()
+        tickets = [srv.submit(s[a:b], t[a:b], want_argmin=argmin)
+                   for a, b in chunks]
+        srv.flush()
+        require(srv.drain(timeout=120), "async drain timed out")
+        wall = time.perf_counter() - t0
+        outs = [tk.result(timeout=1) for tk in tickets]
+        cols = [np.concatenate(c) for c in zip(*outs)] if argmin \
+            else [np.concatenate(outs)]
+        return cols, wall
+
+    walls = {}
+    for name, chunks in (("trickle", trickle), ("burst", burst)):
+        (d,), walls[name] = serve(chunks)
+        require(np.array_equal(d, dense_got[0]),
+                f"async {name} distances != the synchronous path's")
+    got, walls["burst argmin"] = serve(burst, argmin=True)
+    for name, a, b in zip(ANSWERS, got, dense_got):
+        require(np.array_equal(a, b), f"async argmin output {name} != sync")
+    launches = {n_: k.launches - after_warmup[n_]
+                for n_, k in kernels.items()}
+    by_path[f"{MAP} async"] = {n_: k.launches for n_, k in kernels.items()}
+    require(launches["segvis"] > 0 and launches["label_join_rowmin"] > 0,
+            f"async path launches: {launches}")
+    require(all(f.calls == 0 for f in twins), "the async path ran a twin")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.query(s, t)
+    torch.cuda.synchronize()
+    walls["sync"] = time.perf_counter() - t0
+    report_warmup(f"{MAP} async", warm)
+    st = srv.stats
+    print(f"launches: async passes: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    print(f"async: {st.submitted} submitted; flushes full "
+          f"{st.full_flushes}, deadline {st.deadline_flushes}, forced "
+          f"{st.forced_flushes}; pipeline_peak {st.pipeline_peak}, "
+          f"queue_depth_peak {st.queue_depth_peak}")
+    print("serve: async through drain, us/query: " + ", ".join(
+        f"{k} {1e6 * w / n:.3f}" for k, w in walls.items())
+        + f" ({n} queries; trickle = {n} one-query submits, burst = "
+        f"{len(burst)} submits of {ASYNC_BURST}; sync = one PathServer.query"
+        f" pass of the same run)")
+    print(f"check: async == sync on all 5 outputs ({n} queries, trickle and "
+          f"burst distances, burst argmin)")
+    with profiler() as prof:
+        _, wall_p = serve(burst)
+        torch.cuda.synchronize()
+    srv.stop_async()
+    kern = device_times(prof)
+    busy = sum(us for _, us in kern.values()) / 1e3
+    print(f"profile: one burst pass under the profiler: wall "
+          f"{1e3 * wall_p:.3f} ms, device kernels {busy:.3f} ms, idle share "
+          f"{1 - busy / (1e3 * wall_p):.4f}")
+    for name, (count, us) in sorted(kern.items(),
+                                    key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {us / 1e3:9.4f} ms  {count:5d}x  {name[:90]}")
 
 
 def main() -> None:
@@ -804,13 +1060,16 @@ def main() -> None:
           f"{len(cases)} contact cases, (N, S) in "
           f"{[tuple(a[2].shape) for a in cases]}")
 
+    # -- 3b. point location at a cell size that is not a power of two --------
+    cell3_check(dev)
+
     # -- 4. dense main path: CudaEngine behind PathServer ----------------------
     kernels = {"segvis": segvis, "label_join_rowmin": label_join_rowmin,
                "segvis_tiles": segvis_tiles}
     by_path = {}
     print(f"path: {MAP} dense (default policy)")
     srv = PathServer(CudaEngine(bx), batch_size=B)
-    run = drive(srv, s, t, index, kernels, twins)
+    run = drive(srv, s, t, index, kernels, twins, f"{MAP} dense")
     by_path[f"{MAP} dense"] = run["launches"]
     require(run["launches"]["segvis"] > 0
             and run["launches"]["label_join_rowmin"] > 0,
@@ -825,12 +1084,18 @@ def main() -> None:
     # -- 6. where the serving time goes (device kernels vs wall) -------------
     spread_and_profile(srv, s, t)
 
+    # -- 6b. the single slab, f32 path and bf16 answers -----------------------
+    slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev, by_path)
+
+    # -- 6c. the dense path through the continuous batcher --------------------
+    async_path(bx, dense_got, s, t, kernels, twins, by_path)
+
     # -- 7. edge-grid path at the default policy (rooms-S seed 0) -------------
     sqs = uniform_queries(sscene, sgraph, QUERIES, seed=QUERY_SEED)
     ss, st = sqs.s.astype(np.float32), sqs.t.astype(np.float32)
     print(f"path: {GRID_MAP} seed {GRID_SEED} edge grid (default policy)")
     ssrv = PathServer(CudaEngine(sbx), batch_size=B)
-    run = drive(ssrv, ss, st, sindex, kernels, twins)
+    run = drive(ssrv, ss, st, sindex, kernels, twins, f"{GRID_MAP} grid")
     by_path[f"{GRID_MAP} grid"] = run["launches"]
     require(run["launches"]["segvis_tiles"] > 0
             and run["launches"]["label_join_rowmin"] > 0,
@@ -844,7 +1109,7 @@ def main() -> None:
     # -- 8. edge-grid path at the main path's full width (rooms-M, forced) ----
     print(f"path: {MAP} edge grid (edge_grid=True)")
     gsrv = PathServer(CudaEngine(gbx), batch_size=B)
-    run = drive(gsrv, s, t, index, kernels, twins)
+    run = drive(gsrv, s, t, index, kernels, twins, f"{MAP} grid")
     by_path[f"{MAP} grid"] = run["launches"]
     require(run["launches"]["segvis_tiles"] > 0
             and run["launches"]["segvis"] == 0,

@@ -1,0 +1,278 @@
+"""End-to-end serving driver of the PyTorch/CUDA port: an EHL* index
+answering batched ESPP queries on an NVIDIA GPU (or on the CPU, through
+the kernels' plain twins).
+
+Builds the index under a memory budget, packs it for the device
+(width-bucketed by default, one global slab with ``--layout slab``), then
+serves a stream of queries through a ``torch`` (plain twins) or ``cuda``
+(Hopper kernels) engine and reports throughput and per-bucket routing
+stats — the paper's online phase as a service:
+
+    python examples/pathfind_serve_torch.py --paths 64 --serve-async
+    PYTHONPATH=src python examples/pathfind_serve_torch.py --device cpu \\
+        --map rooms-S --queries 64 --batch 16 --paths 8 --serve-async
+
+Self-checks (exit non-zero on failure): a second pass answers bit for bit
+as the first; ``--paths N`` unwinds N paths from the batched argmin and
+requires ``|len(path) - d| <= 1e-4 * max(1, d)``; ``--quantize`` requires
+the device-byte drop, distances within 2*qerr of the f32 engine and argmin
+winners equal to it bit for bit; ``--serve-async`` serves a burst and a
+trickle through the continuous batcher and requires answers equal to the
+synchronous path's bit for bit, at least one full-batch flush and one
+deadline flush.  ``--backend cuda`` (and the default ``--device cuda``)
+exits non-zero without a card.  Workload-aware compression, adaptive
+re-indexing, sharding and the telemetry export come with later slices of
+the port.
+"""
+
+import argparse
+import pathlib
+import sys
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core import (build_ehl, build_visgraph,  # noqa: E402
+                              bucketed_device_bytes, compress_to_fraction,
+                              make_map, pack_bucketed, pack_index,
+                              path_length, plan_buckets, slab_device_bytes,
+                              slab_layout, uniform_queries)
+from repro_torch.core.packed import empty_results, resolve_device  # noqa
+from repro_torch.serving import PathServer, make_engine  # noqa: E402
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--map", default="rooms-M")
+    ap.add_argument("--budget", type=float, default=0.2)
+    ap.add_argument("--queries", type=int, default=2000)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--layout", choices=("bucketed", "slab"),
+                    default="bucketed",
+                    help="device layout: width-bucketed slabs or the single "
+                         "global-Lmax slab")
+    ap.add_argument("--backend", choices=("cuda", "torch", "host"),
+                    default="cuda",
+                    help="query engine: Hopper kernels (twins on CPU "
+                         "tensors), the plain twins, or the float64 oracle")
+    ap.add_argument("--device", default="cuda",
+                    help="where the slabs live: cuda (needs a card) or cpu")
+    ap.add_argument("--quantize", choices=("off", "bf16", "f16"),
+                    default="off",
+                    help="serve quantized label slabs (DESIGN.md §11) and "
+                         "check them against the f32 engine")
+    ap.add_argument("--quantize-min-drop", type=float, default=1.8,
+                    help="[quantize] required f32/quantized device-byte "
+                         "ratio")
+    ap.add_argument("--paths", type=int, default=0,
+                    help="also unwind N paths from the batched argmin and "
+                         "check their lengths")
+    ap.add_argument("--serve-async", action="store_true",
+                    help="also serve through the continuous batcher and "
+                         "check it bit for bit against the synchronous path")
+    args = ap.parse_args(argv)
+    backend = args.backend
+    if backend != "host":
+        try:
+            resolve_device(args.device)
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    if backend == "host" and args.quantize != "off":
+        print("error: --quantize needs a device backend (torch | cuda)",
+              file=sys.stderr)
+        return 2
+
+    scene = make_map(args.map, seed=0)
+    graph = build_visgraph(scene)
+    index = build_ehl(scene, cell_size=2.0, graph=graph)
+    full_mb = index.label_memory() / 1e6
+    stats = compress_to_fraction(index, args.budget)
+    print(f"index: {full_mb:.1f} MB -> {stats.final_bytes / 1e6:.1f} MB "
+          f"({args.budget:.0%} budget)")
+
+    # only the layout that serves is materialized on the device; the other
+    # side of the comparison is the analytic estimate
+    slab = args.layout == "slab"
+    dev = args.device
+    art = None
+    if backend != "host":
+        art = pack_index(index, device=dev) if slab \
+            else pack_bucketed(index, device=dev)
+    slab_bytes = art.device_bytes() if slab and art is not None \
+        else slab_device_bytes(index)
+    bucket_bytes = art.device_bytes() if not slab and art is not None \
+        else bucketed_device_bytes(index)
+    counts, widths, region_bucket = plan_buckets(index)
+    print(f"slab layout:     {len(index.regions)} regions, "
+          f"{slab_bytes / 1e6:.3f} MB on device")
+    print(f"bucketed layout: widths={widths}, "
+          f"{bucket_bytes / 1e6:.3f} MB on device "
+          f"({slab_bytes / max(1, bucket_bytes):.2f}x smaller)")
+    counts = np.asarray(counts)
+    for k, w in enumerate(widths):
+        m = region_bucket == k
+        used, total = counts[m].sum(), max(1, m.sum()) * w
+        print(f"  bucket {k}: width={w:5d} regions={int(m.sum()):5d} "
+              f"waste={1 - used / total:.1%}")
+
+    engine = make_engine(index if art is None else art, backend=backend,
+                         device=dev)
+    eng32, qerr = None, 0.0
+    if args.quantize != "off":
+        lay = slab_layout(args.quantize)
+        artq = pack_index(index, layout=lay, device=dev) if slab \
+            else pack_bucketed(index, layout=lay, device=dev)
+        drop = art.device_bytes() / artq.device_bytes()
+        qerr = float(artq.qerr)
+        qs_ = artq.quant_stats()
+        print(f"quantized[{args.quantize}]: "
+              f"{artq.device_bytes() / 1e6:.3f} MB on device "
+              f"({drop:.2f}x smaller), qerr={qerr:.2e}, "
+              f"id_fallback={qs_['id_fallback']} "
+              f"vid_fallback={qs_['vid_fallback']} "
+              f"dist_fallback={qs_['dist_fallback']}")
+        eng32 = engine                  # the f32 engine the gate holds to
+        engine = make_engine(artq, backend=backend, device=dev)
+        if drop < args.quantize_min_drop:
+            print(f"QUANTIZED SMOKE FAILED:\n  byte drop {drop:.2f}x < "
+                  f"required {args.quantize_min_drop:.2f}x")
+            return 1
+
+    qs = uniform_queries(scene, graph, args.queries, seed=33,
+                         require_path=False)
+    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    srv = PathServer(engine, batch_size=args.batch)
+    srv.warmup(paths=args.paths > 0)
+    d = srv.query(s, t)
+    print(f"served {srv.stats.queries} queries in {srv.stats.seconds:.3f}s "
+          f"-> {srv.stats.us_per_query:.1f} us/query "
+          f"({srv.stats.qps:,.0f} qps); {int(np.isfinite(d).sum())} "
+          f"reachable [layout={args.layout}, backend={backend}, "
+          f"device={dev if backend != 'host' else 'host'}]")
+    for k, b in sorted(srv.stats.per_bucket.items()):
+        print(f"  bucket {k}: width={b.width:5d} queries={b.queries:5d} "
+              f"batches={b.batches:3d} occupancy={b.occupancy:.1%} "
+              f"{b.us_per_query:.1f} us/query")
+    if not np.array_equal(d, srv.query(s, t)):
+        print("SMOKE FAILED: a second pass answered differently")
+        return 1
+
+    if eng32 is not None:
+        failures = check_quantized(engine, eng32, s, t, qerr)
+        if failures:
+            print("QUANTIZED SMOKE FAILED:\n  " + "\n  ".join(failures))
+            return 1
+        print("quantized smoke OK: argmin/covis bitwise vs f32, "
+              "distances within the 2*qerr bound")
+
+    if args.serve_async:
+        failures = check_async(srv, s, t, backend)
+        if failures:
+            print("ASYNC SMOKE FAILED:\n  " + "\n  ".join(failures))
+            return 1
+
+    if args.paths > 0:
+        n = min(args.paths, len(s))
+        dp, paths = srv.query_paths(s[:n], t[:n], host_index=index)
+        err = max((abs(path_length(p) - float(di)) / max(1.0, float(di))
+                   for di, p in zip(dp, paths) if np.isfinite(di)),
+                  default=0.0)
+        print(f"extracted {n} paths via batched argmin ({backend}); "
+              f"max |len(path) - d| / max(1, d) = {err:.2e}")
+        if err > 1e-4 + 2 * qerr:
+            print("PATHS SMOKE FAILED: path lengths disagree with d")
+            return 1
+    return 0
+
+
+def engine_argmin(engine, s, t) -> list:
+    """Full-batch argmin through any bucket-routed engine (exact shapes)."""
+    keys = engine.buckets_of(s, t)
+    outs = empty_results(len(s), True)
+    for k in np.unique(keys):
+        m = keys == k
+        res = engine.batch_argmin(s[m], t[m], bucket=int(k))
+        for o, r in zip(outs, res):
+            o[m] = np.asarray(r)[:int(m.sum())]
+    return outs
+
+
+def check_quantized(eng_q, eng_32, s, t, qerr: float) -> list:
+    """The quantized serving gate: distances within 2*qerr of the f32
+    engine, argmin winners (covis verdicts and via/hub ids, i.e. the
+    unwound paths) equal to it bit for bit.  Returns failure strings."""
+    d32, cv32, vs32, hb32, vt32 = engine_argmin(eng_32, s, t)
+    dq, cvq, vsq, hbq, vtq = engine_argmin(eng_q, s, t)
+    failures = []
+    fin = np.isfinite(d32)
+    if not np.array_equal(fin, np.isfinite(dq)):
+        failures.append("reachability differs from the f32 engine")
+    bound = 2.0 * qerr + 1e-4 * np.abs(np.where(fin, d32, 0.0))
+    err = np.abs(np.where(fin, dq - d32, 0.0))
+    if not np.all(err <= bound + 1e-6):
+        failures.append(f"distance error {err.max():.3e} over the "
+                        f"2*qerr bound {2 * qerr:.3e}")
+    if not np.array_equal(cv32, cvq):
+        failures.append("covis verdicts differ from the f32 engine")
+    m = ~cv32 & fin                     # rows whose path runs via hubs
+    for name, a, b in (("via_s", vs32, vsq), ("hub", hb32, hbq),
+                       ("via_t", vt32, vtq)):
+        if not np.array_equal(a[m], b[m]):
+            failures.append(f"argmin {name} ids differ from the f32 engine")
+    return failures
+
+
+def check_async(srv, s, t, label: str) -> list:
+    """Continuous-batching smoke: serve through the coalescing loop and
+    compare bit for bit against the synchronous path.
+
+    A *burst* (one submit of more than a batch of queries sharing the
+    hottest dispatch key) forces a full flush; a *trickle* (a sub-batch
+    submit and no flush) can only ship at its deadline.  Returns failure
+    strings (empty = pass).
+    """
+    bs = srv.batch_size
+    with srv.engine.pin() as eng:
+        keys = eng.buckets_of(s, t)
+    vals, counts = np.unique(keys, return_counts=True)
+    hot = np.nonzero(keys == int(vals[np.argmax(counts)]))[0]
+    reps = -(-(bs + 1) // len(hot))     # ceil: tile past one full batch
+    sb = np.tile(s[hot], (reps, 1))[:bs + len(hot)]
+    tb = np.tile(t[hot], (reps, 1))[:bs + len(hot)]
+    ref_burst = srv.query(sb, tb)
+    ref_trickle = srv.query(s[:8], t[:8])
+
+    srv.start_async(max_wait_ms=2.0)
+    got_burst = srv.submit(sb, tb).result(timeout=120)
+    got_trickle = srv.submit(s[:8], t[:8]).result(timeout=120)
+    srv.stop_async()
+
+    st = srv.stats
+    failures = []
+    if not np.array_equal(ref_burst, got_burst):
+        failures.append(f"{label}: burst answers differ from sync path")
+    if not np.array_equal(ref_trickle, got_trickle):
+        failures.append(f"{label}: trickle answers differ from sync path")
+    if st.full_flushes < 1:
+        failures.append(f"{label}: no full-batch flush observed")
+    if st.deadline_flushes < 1:
+        failures.append(f"{label}: no deadline flush observed")
+    bad_occ = {k: b.occupancy for k, b in st.per_bucket.items()
+               if b.occupancy > 1.0}
+    if bad_occ:
+        failures.append(f"{label}: per-bucket occupancy above 1.0: "
+                        f"{bad_occ}")
+    print(f"async serve [{label}]: submitted={st.submitted} "
+          f"flushes full={st.full_flushes} deadline={st.deadline_flushes} "
+          f"forced={st.forced_flushes} pipeline_peak={st.pipeline_peak} "
+          f"queue_peak={st.queue_depth_peak} "
+          f"identical={'yes' if not failures else 'NO'}")
+    return failures
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,10 +7,12 @@ from .edgegrid import (EdgeGrid, build_edge_grid,          # noqa: F401
 from .grid import EHLIndex, build_ehl                      # noqa: F401
 from .hublabel import build_hub_labels                     # noqa: F401
 from .maps import make_map                                 # noqa: F401
-from .packed import (LAYOUT_F32, BucketedIndex,            # noqa: F401
-                     SlabLayout, bucketed_device_bytes,
-                     bucketed_from_numpy, pack_bucketed,
-                     query_batch_bucketed, slab_layout)
+from .packed import (LAYOUT_F32, TRACES, BucketedIndex,    # noqa: F401
+                     PackedIndex, SlabLayout, bucketed_device_bytes,
+                     bucketed_from_numpy, pack_bucketed, pack_index,
+                     plan_buckets, query_batch, query_batch_argmin,
+                     query_batch_bucketed, slab_device_bytes,
+                     slab_label_slots, slab_layout)
 from .query import path_length, query, unwind_path         # noqa: F401
 from .visgraph import build_visgraph                       # noqa: F401
 from .workload import uniform_queries                      # noqa: F401

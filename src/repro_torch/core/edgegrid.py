@@ -100,10 +100,12 @@ class EdgeGrid:
         """
         dev = p.device
         f32, i32 = torch.float32, torch.int32
-        g = torch.tensor(self.gcell, dtype=f32, device=dev)
-        eps = torch.tensor(self.eps, dtype=f32, device=dev)
-        zero_f = torch.tensor(0.0, dtype=f32, device=dev)
-        one_f = torch.tensor(1.0, dtype=f32, device=dev)
+        # 0-dim operands by fill kernels: torch.tensor would copy from
+        # pageable host memory and synchronise a CUDA stream
+        g = torch.full((), self.gcell, dtype=f32, device=dev)
+        eps = torch.full((), self.eps, dtype=f32, device=dev)
+        zero_f = torch.full((), 0.0, dtype=f32, device=dev)
+        one_f = torch.full((), 1.0, dtype=f32, device=dev)
         gnx, gny = self.gnx, self.gny
         KA = max(gnx, gny)
         px, py = p[:, 0], p[:, 1]
@@ -117,8 +119,8 @@ class EdgeGrid:
         v1 = torch.where(swap, qx, qy)
         du = u1 - u0
         dv = v1 - v0
-        gnx_t = torch.tensor(gnx, dtype=i32, device=dev)
-        gny_t = torch.tensor(gny, dtype=i32, device=dev)
+        gnx_t = torch.full((), gnx, dtype=i32, device=dev)
+        gny_t = torch.full((), gny, dtype=i32, device=dev)
         Gu = torch.where(swap, gny_t, gnx_t)                    # [N]
         Gv = torch.where(swap, gnx_t, gny_t)
         ulo = torch.minimum(u0, u1)
@@ -155,7 +157,7 @@ class EdgeGrid:
         sw = swap[:, None, None]
         ix = torch.where(sw, r, col[:, :, None])
         iy = torch.where(sw, col[:, :, None], r)
-        pad = torch.tensor(gnx * gny, dtype=i32, device=dev)
+        pad = torch.full((), gnx * gny, dtype=i32, device=dev)
         cell = torch.where(valid, iy * gnx + ix, pad)
         return cell.reshape(p.shape[0], KA * 3)
 

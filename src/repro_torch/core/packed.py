@@ -1,12 +1,15 @@
-"""Width-bucketed device slabs of an EHL/EHL* index and the batched query.
+"""Device slabs of an EHL/EHL* index and the batched query.
 
 The host index (``core.grid``) stores ragged per-region label lists; the
 online engine needs contiguous, gatherable tensors (DESIGN.md §4).  This
-module packs them into a :class:`BucketedIndex`: regions grouped into
-power-of-two width buckets (multiples of ``lane``), one dense float32 slab
-per bucket, plus a ``region -> (bucket, row)`` indirection behind the cell
-mapper.  Queries dispatch per bucket, so each pays only for the label width
-its regions need.
+module packs them two ways:
+
+* :class:`PackedIndex` — one slab whose rows are padded to the global
+  maximum label count (``pack_index``); the mapper yields slab rows.
+* :class:`BucketedIndex` — regions grouped into power-of-two width buckets
+  (multiples of ``lane``), one dense slab per bucket, plus a ``region ->
+  (bucket, row)`` indirection behind the cell mapper.  Queries dispatch
+  per bucket, so each pays only for the label width its regions need.
 
 Shared across buckets:
 
@@ -20,14 +23,18 @@ Shared across buckets:
   ``edge_grid=True``), bitwise-identical to the dense predicate.
 * ``mapper``: cell -> region id, so point location is O(1).
 
-The query runs in two halves per bucket batch, as the kernels need
-materialised planes: :func:`_fold_endpoint` (locate, gather, visibility
-fold through ``segvis``, or ``segvis_tiles`` over the edge grid) once per
-endpoint side, then :func:`_join_endpoints` (co-visibility through the same
-visibility dispatch, then the hub row join ``label_join_rowmin`` and the
-min or argmin).  ``use_kernels`` picks the Hopper kernels (``kernels.ops``,
-which run the twins on CPU tensors) or the plain twins (``kernels.ref``)
-directly.
+The query runs in two halves per batch (per bucket batch on the bucketed
+layout), as the kernels need materialised planes: :func:`_fold_endpoint`
+(locate, gather, visibility fold through ``segvis``, or ``segvis_tiles``
+over the edge grid) once per endpoint side, then :func:`_join_endpoints`
+(co-visibility through the same visibility dispatch, then the hub row join
+``label_join_rowmin`` and the min or argmin).  ``use_kernels`` picks the
+Hopper kernels (``kernels.ops``, which run the twins on CPU tensors) or the
+plain twins (``kernels.ref``) directly.  The query path makes its scalar
+operands with ``torch.full`` (a fill kernel), never ``torch.tensor`` (a
+copy from pageable host memory, which synchronises a CUDA stream), so a
+batch is dispatched without waiting on the device.  :data:`TRACES` counts
+the first sighting of each entry's shape key, the warmup check.
 
 Everything the query computes is float32/int32; the host oracle is
 float64.
@@ -59,6 +66,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.obs.locks import make_lock
 
 from .edgegrid import (EdgeGrid, build_edge_grid, ell_bytes, plan_grid,
                        segvis_grid)
@@ -188,6 +197,39 @@ class ResidualTable:
         return out
 
 
+class TraceCounter:
+    """Counts the first sighting of each serving entry's shape key.
+
+    The port's analogue of the reference's jit trace counter.  Every fold
+    and join entry reports its key (entry, device, layout, bucket width or
+    slab, batch rows, argmin, distance dtype) with :meth:`see`; a key not
+    seen before bumps ``count`` and ``by_entry[entry]``.  On the card a
+    cold key means new allocator segments for that shape (and, once the
+    fixed-shape entries are captured as CUDA graphs, a capture), so serving
+    code checks that warmup left nothing cold: snapshot ``count``, serve,
+    require it unchanged.  Keys hold no artifact identity: the kernels and
+    the allocator see shapes, not artifacts.
+    """
+
+    def __init__(self):
+        self.count = 0
+        self.by_entry: dict[str, int] = {}
+        self._seen: set = set()
+        self._lock = make_lock("obs.series")
+
+    def see(self, entry: str, *key) -> None:
+        key = (entry,) + key
+        with self._lock:
+            if key in self._seen:
+                return
+            self._seen.add(key)
+            self.count += 1
+            self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
+
+
+TRACES = TraceCounter()
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises for CUDA when no card is present
     (callers that want the CPU say so with ``device="cpu"``)."""
@@ -213,6 +255,74 @@ def bucket_width(n_labels: int, lane: int = 128) -> int:
     while w < n_labels:
         w *= 2
     return w
+
+
+@dataclasses.dataclass
+class PackedIndex:
+    """Single-slab layout: one [R, L] slab, every row padded to the global
+    maximum label count rounded up to ``lane``.
+
+    The mapper resolves cells to slab rows directly.  Hub rows are sorted
+    with ``HUB_PAD`` only at the tail (the join kernel's fast path).
+    """
+
+    hub_ids: torch.Tensor   # [R, L] int32 (HUB_PAD pads) or u16 delta bits
+    #                         as int16 (§11)
+    via_xy: torch.Tensor | None     # [R, L, 2] float32, or None (§11)
+    via_d: torch.Tensor     # [R, L] f32/bf16/f16 (+inf pads)
+    via_ids: torch.Tensor   # [R, L] int32 (-1 pads) or u16
+    mapper: torch.Tensor    # [C] int32 cell -> slab row
+    edges_a: torch.Tensor   # [E, 2] float32 (degenerate-padded)
+    edges_b: torch.Tensor   # [E, 2] float32
+    edges_c: torch.Tensor   # [E, 2] float32 CCW next vertex (§5 vertex rule)
+    # static metadata
+    nx: int
+    ny: int
+    cell_size: float
+    width: float
+    height: float
+    grid: EdgeGrid | None = None    # edge-grid pruning (DESIGN.md §10)
+    # quantized-layout extras (§11) — all None under the f32 layout
+    vert_xy: torch.Tensor | None = None     # [V, 2] f32 shared vertex table
+    hub_base: torch.Tensor | None = None    # [R] i32 per-row hub id base
+    vid_base: torch.Tensor | None = None    # [R] i32 per-row via id base
+    qerr: torch.Tensor | None = None        # f32 scalar max |f32(dq) - d|
+    layout: SlabLayout = LAYOUT_F32
+    residual: ResidualTable | None = dataclasses.field(
+        default=None, repr=False, compare=False)   # host-side, not uploaded
+
+    @property
+    def device(self) -> torch.device:
+        return self.mapper.device
+
+    @property
+    def num_regions(self) -> int:
+        return self.hub_ids.shape[0]
+
+    @property
+    def label_width(self) -> int:
+        return self.hub_ids.shape[1]
+
+    @property
+    def num_edges(self) -> int:
+        return self.edges_a.shape[0]
+
+    def device_bytes(self) -> int:
+        arrs = (self.hub_ids, self.via_xy, self.via_d, self.via_ids,
+                self.mapper, self.edges_a, self.edges_b, self.edges_c,
+                self.vert_xy, self.hub_base, self.vid_base)
+        base = sum(a.numel() * a.element_size()
+                   for a in arrs if a is not None)
+        return int(base) + (self.grid.device_bytes() if self.grid else 0)
+
+    def label_slots(self) -> tuple[int, int]:
+        """(used, total) label slots — padding waste is total - used."""
+        return int(_used_mask(self.hub_ids).sum()), self.hub_ids.numel()
+
+    def quant_stats(self) -> dict:
+        """Realized quantization record (fallbacks are loud, not silent)."""
+        return _quant_stats(self.layout, (self.hub_ids,), (self.via_d,),
+                            (self.via_ids,), self.qerr)
 
 
 @dataclasses.dataclass
@@ -505,6 +615,83 @@ def _grid_bytes(index: EHLIndex, lane: int, edge_grid: bool | None) -> int:
     return 0 if plan is None else ell_bytes(plan[0], plan[1], plan[3])
 
 
+def slab_label_slots(index: EHLIndex, lane: int = 128,
+                     region_pad_multiple: int = 1) -> tuple[int, int]:
+    """(used, total) label slots of the would-be single slab, analytically."""
+    counts = index.packed_label_counts()
+    R = _round_up(max(1, len(counts)), region_pad_multiple)
+    L = _round_up(max(1, int(counts.max(initial=1))), lane)
+    return int(counts.sum()), R * L
+
+
+def slab_device_bytes(index: EHLIndex, lane: int = 128,
+                      region_pad_multiple: int = 1,
+                      edge_grid: bool | None = None,
+                      layout: SlabLayout = LAYOUT_F32) -> int:
+    """What ``pack_index(...).device_bytes()`` would be, without packing."""
+    _, slots = slab_label_slots(index, lane, region_pad_multiple)
+    lb = dtype_bytes(layout)
+    R = _round_up(max(1, len(index.packed_label_counts())),
+                  region_pad_multiple)
+    Ep = padded_edge_count(index.scene.edges.shape[0], lane)
+    return (slots * lb.per_slot + R * lb.per_row
+            + index.graph.num_nodes * lb.per_vertex
+            + index.mapper.size * 4 + 3 * Ep * 2 * 4
+            + _grid_bytes(index, lane, edge_grid))
+
+
+def pack_index(index: EHLIndex, lane: int = 128,
+               region_pad_multiple: int = 1,
+               edge_grid: bool | None = None,
+               layout: SlabLayout = LAYOUT_F32,
+               device="cuda") -> PackedIndex:
+    """Freeze a (possibly compressed) host index into one slab on ``device``.
+
+    Rows are padded to the largest label count rounded up to ``lane``, and
+    the row count to a multiple of ``region_pad_multiple``.  ``edge_grid``:
+    ``None`` attaches the §10 edge grid when pruning pays, ``True``/
+    ``False`` force it on/off.  ``layout``: quantized layouts store
+    distances narrow, ids u16-delta, drop ``via_xy`` for the shared vertex
+    table, and attach the host-side :class:`ResidualTable` the exact-argmin
+    rescue reads (DESIGN.md §11).
+    """
+    dev = resolve_device(device)
+    live, packs = _host_packs(index)
+    R = _round_up(len(live), region_pad_multiple)
+    Lmax = max((len(p["hubs"]) for p in packs), default=1)
+    L = _round_up(max(Lmax, 1), lane)
+    arrs = _alloc_slab(R, L)
+    for i, p in enumerate(packs):
+        _fill_row(arrs, i, p)
+
+    mapper = _cell_mapper(index, live)
+    ea, eb, ec = _pack_edges(index, lane)
+    grid = _maybe_grid(ea, eb, index.scene.edges.shape[0], index.scene,
+                       edge_grid, dev)
+
+    def put(a):
+        return _put(a, dev)
+
+    common = dict(mapper=put(mapper), edges_a=put(ea), edges_b=put(eb),
+                  edges_c=put(ec), grid=grid, nx=int(index.nx),
+                  ny=int(index.ny), cell_size=float(index.cell_size),
+                  width=float(index.scene.width),
+                  height=float(index.scene.height))
+    if not layout.quantized:
+        return PackedIndex(hub_ids=put(arrs[0]), via_xy=put(arrs[1]),
+                           via_d=put(arrs[2]), via_ids=put(arrs[3]),
+                           **common)
+    hub_q, d_q, vid_q, hb, vb, qerr = _quantize_slab(arrs, layout)
+    residual = ResidualTable(
+        (arrs[2],), np.zeros(R, np.int32), np.arange(R, dtype=np.int32),
+        mapper, (L,), index.nx, index.ny, float(index.cell_size))
+    return PackedIndex(
+        hub_ids=put(hub_q), via_xy=None, via_d=put(d_q), via_ids=put(vid_q),
+        vert_xy=put(_vert_table(index)), hub_base=put(hb), vid_base=put(vb),
+        qerr=torch.tensor(float(qerr), dtype=torch.float32, device=dev),
+        layout=layout, residual=residual, **common)
+
+
 def plan_buckets(index: EHLIndex, lane: int = 128
                  ) -> tuple[list, list, np.ndarray]:
     """Bucket assignment from the grid's pack metadata — no device arrays.
@@ -768,14 +955,30 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x * x + y * y)
 
 
-def locate_regions(bx: BucketedIndex, pts: torch.Tensor) -> torch.Tensor:
-    """[B] region ids for float32 query points (floor-divide + mapper)."""
-    ix = torch.clamp((pts[:, 0] / bx.cell_size).to(torch.int32), 0, bx.nx - 1)
-    iy = torch.clamp((pts[:, 1] / bx.cell_size).to(torch.int32), 0, bx.ny - 1)
-    return bx.mapper[(iy * bx.nx + ix).long()]
+def _scalar(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-dim tensor on ``device``, written by a fill kernel: no copy from
+    host memory, so no stream synchronisation on a CUDA device."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
-def _segvis(p, q, bx: BucketedIndex, use_kernels: bool) -> torch.Tensor:
+def locate_regions(idx, pts: torch.Tensor) -> torch.Tensor:
+    """[B] region ids (bucketed) or slab rows (single slab) for float32
+    query points: floor-divide + mapper.
+
+    The divisor is a 0-dim float32 tensor on the points' device.  Divided
+    by a Python float (a CPU scalar), a CUDA tensor is multiplied by the
+    scalar's float32 reciprocal instead, which at a cell size that is not a
+    power of two puts points one ulp below a cell boundary in the next
+    cell; the host mirrors (``DeviceEngine._route``,
+    :meth:`ResidualTable.locate`) divide, and must agree bit for bit.
+    """
+    cs = _scalar(idx.cell_size, torch.float32, pts.device)
+    ix = torch.clamp((pts[:, 0] / cs).to(torch.int32), 0, idx.nx - 1)
+    iy = torch.clamp((pts[:, 1] / cs).to(torch.int32), 0, idx.ny - 1)
+    return idx.mapper[(iy * idx.nx + ix).long()]
+
+
+def _segvis(p, q, bx, use_kernels: bool) -> torch.Tensor:
     """Visibility dispatch: grid-pruned when the artifact carries a grid.
 
     The grid path is bitwise-identical to the dense path (DESIGN.md §10
@@ -810,6 +1013,19 @@ def _via_xy_of(vid: torch.Tensor, vert_xy: torch.Tensor) -> torch.Tensor:
     """
     xy = vert_xy[torch.clamp(vid, 0, vert_xy.shape[0] - 1).long()]
     return torch.where((vid >= 0)[..., None], xy, torch.zeros_like(xy))
+
+
+def _gather_packed(idx: PackedIndex, rows: torch.Tensor):
+    """Gather per-query label rows of the single slab (its full width);
+    quantized rows are decoded as :func:`_gather_bucketed` decodes them."""
+    rows = rows.long()
+    if not idx.layout.quantized:
+        return (idx.hub_ids[rows], idx.via_xy[rows], idx.via_d[rows],
+                idx.via_ids[rows])
+    hub = _decode_ids(idx.hub_ids[rows], idx.hub_base[rows], HUB_PAD)
+    vid = _decode_ids(idx.via_ids[rows], idx.vid_base[rows], -1)
+    return (hub, _via_xy_of(vid, idx.vert_xy),
+            idx.via_d[rows].to(torch.float32), vid)
 
 
 def _gather_bucketed(bx: BucketedIndex, regions: torch.Tensor, bucket: int,
@@ -860,8 +1076,7 @@ def _gather_bucketed(bx: BucketedIndex, regions: torch.Tensor, bucket: int,
     return hub, xy, vd, vid
 
 
-def _mask_labels(labels, pts: torch.Tensor, bx: BucketedIndex,
-                 use_kernels: bool):
+def _mask_labels(labels, pts: torch.Tensor, bx, use_kernels: bool):
     """Per-endpoint half of Eq. 1-3: fold via visibility into distances.
 
     (hub [B,L], xy [B,L,2], d [B,L], vid [B,L]) -> (hub, vd, vid) where
@@ -871,7 +1086,7 @@ def _mask_labels(labels, pts: torch.Tensor, bx: BucketedIndex,
     B, L = hub.shape
     vis = _segvis(torch.repeat_interleave(pts, L, dim=0), xy.reshape(-1, 2),
                   bx, use_kernels).reshape(B, L)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=pts.device)
+    inf = _scalar(float("inf"), torch.float32, pts.device)
     vd = torch.where(vis, _norm(pts[:, None] - xy) + d, inf)
     return hub, vd, vid
 
@@ -907,7 +1122,7 @@ def _join_masked(masked_s, masked_t, s, t, covis, use_kernels: bool,
     if not want_argmin:
         return d
 
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=s.device)
+    inf = _scalar(float("inf"), torch.float32, s.device)
     i = torch.argmin(rowmin, dim=-1)                    # [B]
     hub_i = torch.gather(hub_s, 1, i[:, None])          # [B, 1]
     vd_t_match = torch.where(hub_t == hub_i, vd_t, inf)
@@ -932,22 +1147,40 @@ def _join_masked(masked_s, masked_t, s, t, covis, use_kernels: bool,
     return d, covis, via_s, hub_i[:, 0], via_t, amb
 
 
-def _fold_endpoint(bx: BucketedIndex, pts: torch.Tensor, bucket: int,
+def _layout_key(idx, bucket: int | None) -> tuple:
+    """The artifact part of a :data:`TRACES` key: layout, slab or bucket
+    width, and the distance dtype stored there (per-bucket fallbacks
+    included)."""
+    if bucket is None:
+        return (idx.layout, "slab", idx.label_width, idx.via_d.dtype)
+    return (idx.layout, "bucket", idx.widths[bucket], idx.via_d[bucket].dtype)
+
+
+def _fold_endpoint(idx, pts: torch.Tensor, bucket: int | None = None,
                    use_kernels: bool = False):
-    """locate + gather + visibility-fold one endpoint side at ``bucket``."""
+    """locate + gather + visibility-fold one endpoint side.
+
+    ``bucket=None`` gathers the single :class:`PackedIndex` slab; an int
+    gathers the bucketed layout at that dispatch bucket.
+    """
     pts = pts.to(torch.float32)
-    r = locate_regions(bx, pts)
-    labels = _gather_bucketed(bx, r, bucket)
-    return _mask_labels(labels, pts, bx, use_kernels)
+    TRACES.see("fold_endpoint", pts.device.type, pts.shape[0],
+               *_layout_key(idx, bucket))
+    r = locate_regions(idx, pts)
+    labels = (_gather_packed(idx, r) if bucket is None
+              else _gather_bucketed(idx, r, bucket))
+    return _mask_labels(labels, pts, idx, use_kernels)
 
 
-def _join_endpoints(bx: BucketedIndex, masked_s, masked_t, s: torch.Tensor,
+def _join_endpoints(idx, masked_s, masked_t, s: torch.Tensor,
                     t: torch.Tensor, use_kernels: bool = False,
                     want_argmin: bool = False, qerr2=None):
     """Co-visibility + Eq. 1-3 join over folded endpoint sides."""
     s = s.to(torch.float32)
     t = t.to(torch.float32)
-    covis = _segvis(s, t, bx, use_kernels)
+    TRACES.see("join_endpoints", s.device.type, *masked_s[0].shape,
+               want_argmin, qerr2 is not None)
+    covis = _segvis(s, t, idx, use_kernels)
     return _join_masked(masked_s, masked_t, s, t, covis, use_kernels,
                         want_argmin, qerr2=qerr2)
 
@@ -973,6 +1206,29 @@ def query_batch_at_bucket(bx: BucketedIndex, s: torch.Tensor, t: torch.Tensor,
                            want_argmin=want_argmin, qerr2=qerr2)
 
 
+def query_batch(idx: PackedIndex, s, t, use_kernels: bool = False
+                ) -> torch.Tensor:
+    """Batched Eq. 1-3 over the single slab: [B] float32 distances."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=idx.device)
+    t = torch.as_tensor(t, dtype=torch.float32, device=idx.device)
+    ms = _fold_endpoint(idx, s, use_kernels=use_kernels)
+    mt = _fold_endpoint(idx, t, use_kernels=use_kernels)
+    return _join_endpoints(idx, ms, mt, s, t, use_kernels=use_kernels)
+
+
+def query_batch_argmin(idx: PackedIndex, s, t, use_kernels: bool = False):
+    """Distances + winning (covis, via_s, hub, via_t) label ids over the
+    single slab; a quantized layout adds the sixth ``amb`` [B] bool, the
+    rows to rescue (:func:`rescue_exact`)."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=idx.device)
+    t = torch.as_tensor(t, dtype=torch.float32, device=idx.device)
+    ms = _fold_endpoint(idx, s, use_kernels=use_kernels)
+    mt = _fold_endpoint(idx, t, use_kernels=use_kernels)
+    qerr2 = idx.qerr + idx.qerr if idx.layout.quantized else None
+    return _join_endpoints(idx, ms, mt, s, t, use_kernels=use_kernels,
+                           want_argmin=True, qerr2=qerr2)
+
+
 def join_masked(masked_s, masked_t, s: torch.Tensor, t: torch.Tensor,
                 covis: torch.Tensor, use_kernels: bool = False,
                 want_argmin: bool = False, qerr2=None):
@@ -982,6 +1238,8 @@ def join_masked(masked_s, masked_t, s: torch.Tensor, t: torch.Tensor,
     ``qerr2``: see :func:`_join_masked`."""
     s = torch.as_tensor(s, dtype=torch.float32, device=masked_s[0].device)
     t = torch.as_tensor(t, dtype=torch.float32, device=masked_s[0].device)
+    TRACES.see("join_masked", s.device.type, *masked_s[0].shape,
+               want_argmin, qerr2 is not None)
     return _join_masked(masked_s, masked_t, s, t, covis.to(torch.bool),
                         use_kernels, want_argmin, qerr2=qerr2)
 
@@ -990,33 +1248,37 @@ def join_masked(masked_s, masked_t, s: torch.Tensor, t: torch.Tensor,
 # quantized layouts: exact-argmin rescue (DESIGN.md §11)
 # ---------------------------------------------------------------------------
 
-def gather_masked_exact(bx: BucketedIndex, pts: torch.Tensor,
-                        d_exact: torch.Tensor, width: int,
-                        use_kernels: bool = False):
+def gather_masked_exact(idx, pts: torch.Tensor, d_exact: torch.Tensor,
+                        width: int, use_kernels: bool = False):
     """Rescue gather: quantized slabs with the exact f32 distance rows.
 
     ``d_exact`` is the [B, width] residual gather
-    (:meth:`ResidualTable.gather_d`) for these points.  Ids and via
+    (:meth:`ResidualTable.gather_d`) for these points; ``width`` is the
+    single slab's ``label_width`` on a :class:`PackedIndex`.  Ids and via
     coordinates decode exactly from the device slabs, so substituting the
     exact distances makes the returned masked triple bitwise-identical to
     the f32 engine's visibility fold — the rescue join then reproduces the
     f32 argmin exactly.
     """
     pts = pts.to(torch.float32)
-    regions = locate_regions(bx, pts)
-    bucket = max((k for k, w in enumerate(bx.widths) if w <= width),
-                 default=0)
-    hub, xy, _, vid = _gather_bucketed(bx, regions, bucket, width)
-    return _mask_labels((hub, xy, d_exact.to(torch.float32), vid), pts, bx,
-                        use_kernels)
+    TRACES.see("gather_masked_exact", pts.device.type, pts.shape[0], width,
+               idx.layout, isinstance(idx, PackedIndex))
+    regions = locate_regions(idx, pts)
+    if isinstance(idx, PackedIndex):
+        hub, xy, _, vid = _gather_packed(idx, regions)
+    else:
+        bucket = max((k for k, w in enumerate(idx.widths) if w <= width),
+                     default=0)
+        hub, xy, _, vid = _gather_bucketed(idx, regions, bucket, width)
+    return _mask_labels((hub, xy, d_exact.to(torch.float32), vid), pts,
+                        idx, use_kernels)
 
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def rescue_exact(bx: BucketedIndex, s, t, width: int, covis,
-                 use_kernels: bool = False):
+def rescue_exact(bx, s, t, width: int, covis, use_kernels: bool = False):
     """Re-answer a batch with exact distances (host residual -> device).
 
     Full-batch recomputation at the quantized run's shapes; the caller

@@ -7,7 +7,9 @@ source, every shared header ``csrc/*.cuh`` and the flags: a changed source
 or header is rebuilt, an unchanged one is loaded as it is.  Builds happen
 at first use, never at import.  A build writes to a private temporary name
 and renames it into place, so processes that build the same source at once
-never load a half-written library.
+never load a half-written library.  ``BUILDS`` and ``LOADS`` count the
+nvcc builds and ``ctypes`` loads per source, so a warmed server can check
+that live traffic built and loaded nothing.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("segvis", "label_join", "segvis_tiles")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+BUILDS: dict[str, int] = {}     # source name -> nvcc builds in this process
+LOADS: dict[str, int] = {}      # source name -> ctypes loads in this process
 
 
 def nvcc_path() -> str:
@@ -73,6 +77,8 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     compiler's output when a build fails.
     """
     jobs = {n: job for n in names if (job := _start(n)) is not None}
+    for n in jobs:
+        BUILDS[n] = BUILDS.get(n, 0) + 1
     logs = {n: proc.communicate()[0] for n, (proc, _, _) in jobs.items()}
     failed = [n for n, (proc, _, _) in jobs.items() if proc.returncode != 0]
     for name, (proc, tmp, out) in jobs.items():
@@ -92,4 +98,5 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build((name,))
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        LOADS[name] = LOADS.get(name, 0) + 1
     return lib

@@ -1,5 +1,6 @@
-"""Query engines and the batching PathServer."""
+"""Query engines, the batching PathServer and its continuous batcher."""
 
+from .batcher import CoalescingBatcher, QueueFull, Ticket  # noqa: F401
 from .engine import BucketStats, PathServer, ServeStats    # noqa: F401
 from .query_engine import (CudaEngine, HostEngine,         # noqa: F401
-                           QueryEngine, TorchEngine, make_engine)
+                           Pending, QueryEngine, TorchEngine, make_engine)

@@ -2,7 +2,12 @@
 
 Each test asks the ``card`` fixture for the device, and the fixture skips
 when no CUDA device is present, so every worker collects the same tests.
-The kernels must equal their twins bit for bit (``torch.equal``).
+The kernels must equal their twins bit for bit (``torch.equal``).  Also on
+the card: point location at a cell size that is not a power of two, the
+single-slab engines, the split-phase (async) path against the synchronous
+one, and the warmup check (no build, load or cold shape on live traffic).
+This module imports no JAX (the card's machine has none); names added with
+the slab and async slice are imported inside the tests that use them.
 """
 
 import numpy as np
@@ -344,3 +349,219 @@ def test_quantized_cuda_engine_equals_torch_engine(card, layout):
     assert np.array_equal(fin, np.isfinite(a[0]))
     assert np.all(np.abs(a[0][fin] - c[0][fin])
                   <= 2 * float(qbx.qerr) + 1e-6 * np.abs(c[0][fin]))
+
+
+# ---------------------------------------------------------------------------
+# point location at cell 3.0 (the card's division must be the host's)
+# ---------------------------------------------------------------------------
+
+CELL3 = 3.0
+
+
+def cell3_case(device):
+    """rooms-S seed 1 at budget 0.2 and cell 3.0, with queries whose one
+    endpoint lies on a cell boundary line (x = 3k at y = 30, y = 3k at
+    x = 30) or one float32 ulp below it, and whose other endpoint is a free
+    point of the narrowest bucket, both ways round.  Located one cell too
+    far, a boundary point lands in a region the host routing did not pick;
+    where that region lies in a wider bucket the query is served pure
+    padding.  Returns (index, bx, engine, s, t, float64 truth)."""
+    from repro_torch.core.query import query as host_query
+    from repro_torch.serving import CudaEngine
+
+    scene = make_map("rooms-S", seed=1)
+    graph = build_visgraph(scene)
+    idx = build_ehl(scene, cell_size=CELL3, graph=graph)
+    compress_to_fraction(idx, 0.2)
+    bx = pack_bucketed(idx, device=device)
+    eng = CudaEngine(bx)
+    lines = np.float32(CELL3 * np.arange(1, idx.nx))
+    vals = np.concatenate([lines, np.nextafter(lines, np.float32(-np.inf))])
+    mid = np.full_like(vals, 30.0)
+    edge = np.concatenate([np.stack([vals, mid], 1),
+                           np.stack([mid, vals], 1)]).astype(np.float32)
+    free = uniform_queries(scene, graph, 400, seed=7).t.astype(np.float32)
+    free = free[eng._route(free) == 0][:len(edge)]
+    assert len(free) == len(edge)
+    s = np.concatenate([edge, free])
+    t = np.concatenate([free, edge])
+    truth = np.array([host_query(idx, a, b, want_path=False)[0]
+                      for a, b in zip(s, t)])
+    return idx, bx, eng, s, t, truth
+
+
+def check_cell3(idx, bx, eng, s, t, truth):
+    """Device location == the host mirrors on every endpoint, and every
+    query the oracle reaches served within 1e-4 of it."""
+    from repro_torch.core.packed import locate_regions, slab_layout
+    from repro_torch.serving import PathServer
+
+    pts = np.concatenate([s, t])
+    got = locate_regions(bx, torch.from_numpy(pts).to(bx.device))
+    got = got.cpu().numpy()
+    qbx = pack_bucketed(idx, layout=slab_layout("bf16"), device="cpu")
+    want = qbx.residual.locate(pts)
+    bad = np.nonzero(got != want)[0]
+    assert not len(bad), f"device regions differ at {pts[bad].tolist()}"
+    np.testing.assert_array_equal(
+        bx.region_bucket.cpu().numpy()[got], eng._route(pts))
+    d = PathServer(eng, batch_size=32).query(s, t)
+    fin = np.isfinite(truth)
+    err = np.abs(d[fin] - truth[fin])
+    bad = np.nonzero(~(err <= 1e-4))[0]
+    assert not len(bad), [(s[fin][i].tolist(), t[fin][i].tolist(),
+                           float(d[fin][i]), float(truth[fin][i]))
+                          for i in bad]
+    return int(fin.sum())
+
+
+def test_cell3_location_on_card_equals_host(card):
+    """At cell 3.0 the card locates every boundary point where the host
+    routing and the residual table do, and serves every reachable query
+    within 1e-4 of the float64 oracle (s = (26.999998, 30) included)."""
+    case = cell3_case(card)
+    assert check_cell3(*case) > 0
+
+
+def test_slab_cell3_location_on_card_equals_host(card):
+    """The single slab's rows located on the card at cell 3.0 equal its
+    residual table's host location on every boundary point."""
+    from repro_torch.core.packed import (locate_regions, pack_index,
+                                         slab_layout)
+
+    idx, _, _, s, t, _ = cell3_case(card)
+    pts = np.concatenate([s, t])
+    pk = pack_index(idx, device=card)
+    got = locate_regions(pk, torch.from_numpy(pts).to(card)).cpu().numpy()
+    res = pack_index(idx, layout=slab_layout("bf16"), device="cpu").residual
+    np.testing.assert_array_equal(got, res.locate(pts))
+
+
+# ---------------------------------------------------------------------------
+# the single slab, the split-phase path and the warmup check on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rooms_s():
+    scene = make_map("rooms-S", seed=1)
+    graph = build_visgraph(scene)
+    idx = build_ehl(scene, cell_size=2.0, graph=graph)
+    compress_to_fraction(idx, 0.2)
+    qs = uniform_queries(scene, graph, 300, seed=5)
+    return idx, qs.s.astype(np.float32), qs.t.astype(np.float32)
+
+
+@pytest.mark.parametrize("layout", ["f32", "bf16"])
+def test_slab_cuda_engine_equals_torch_and_bucketed(card, rooms_s, layout):
+    """Slab CudaEngine == slab TorchEngine == bucketed CudaEngine on all
+    five argmin outputs (after the rescue on bf16), and the slab serving
+    launches both kernels."""
+    from repro_torch.core.packed import pack_index, slab_layout
+    from repro_torch.serving import CudaEngine, PathServer, TorchEngine
+
+    idx, s, t = rooms_s
+    lay = slab_layout(layout)
+    pk = pack_index(idx, layout=lay, device=card)
+    bx = pack_bucketed(idx, layout=lay, device=card)
+    seg, join = segvis.launches, label_join_rowmin.launches
+    a = PathServer(CudaEngine(pk), batch_size=64)._dispatch(s, t, True)
+    assert segvis.launches > seg and label_join_rowmin.launches > join
+    b = PathServer(TorchEngine(pk), batch_size=64)._dispatch(s, t, True)
+    c = PathServer(CudaEngine(bx), batch_size=64)._dispatch(s, t, True)
+    for x, y, z in zip(a, b, c):
+        np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(x, z)
+
+
+def _artifact(idx, kind: str, device):
+    from repro_torch.core.packed import pack_index, slab_layout
+
+    layout, _, packer = kind.partition("-")
+    pack = pack_index if packer == "slab" else pack_bucketed
+    return pack(idx, layout=slab_layout(layout), device=device)
+
+
+@pytest.mark.parametrize("kind,argmin", [("f32", False), ("f32", True),
+                                         ("bf16", False), ("bf16", True),
+                                         ("f32-slab", True)])
+def test_async_equals_sync_on_card(card, rooms_s, kind, argmin):
+    """Through the batcher (one-query trickles and bursts) the card's
+    staged path answers bit for bit as the synchronous path does."""
+    from repro_torch.serving import CudaEngine, PathServer
+
+    idx, s, t = rooms_s
+    srv = PathServer(CudaEngine(_artifact(idx, kind, card)), batch_size=64)
+    srv.warmup(paths=argmin)
+    want = srv._dispatch(s, t, want_argmin=argmin)
+    tickets = [srv.submit(s[i:i + 1], t[i:i + 1], want_argmin=argmin)
+               for i in range(100)]
+    tickets.append(srv.submit(s[100:], t[100:], want_argmin=argmin))
+    srv.flush()
+    assert srv.drain(timeout=120)
+    srv.stop_async()
+    got = [tk.result(timeout=1) for tk in tickets]
+    got = [np.concatenate(col) for col in zip(*got)] if argmin \
+        else [np.concatenate(got)]
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+    assert srv.stats.pipeline_peak >= 1
+    assert all(b.occupancy <= 1 for b in srv.stats.per_bucket.values())
+
+
+@pytest.mark.parametrize("kind,argmin", [("f32", False), ("f32", True),
+                                         ("bf16", False), ("f32-slab", True)])
+def test_dispatch_staged_never_syncs(card, rooms_s, kind, argmin):
+    """``dispatch_staged`` issues its batch without one host
+    synchronisation (PyTorch's sync debug mode raises on any), and the
+    results equal the synchronous call's."""
+    from repro_torch.serving import CudaEngine
+
+    idx, s, t = rooms_s
+    eng = CudaEngine(_artifact(idx, kind, card))
+    eng.warmup(64, want_argmin=argmin)
+    sb, tb = s[:64], t[:64]
+    bucket = int(eng.buckets_of(sb, tb).max())
+    staged = eng.stage(sb, tb, bucket)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = eng.dispatch_staged(staged, bucket, want_argmin=argmin)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = pending.wait()
+    want = eng.batch_argmin(sb, tb, bucket) if argmin \
+        else (eng.batch(sb, tb, bucket),)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "f32-slab"])
+def test_warmup_leaves_nothing_cold_on_card(card, rooms_s, kind):
+    """After ``warmup(paths=True)`` live traffic (every bucket, a ragged
+    tail, ``query_paths``, the async path, the rescue on bf16) builds and
+    loads no kernel and meets no cold shape; a new batch size does."""
+    from repro_torch.core.packed import TRACES
+    from repro_torch.kernels import build
+    from repro_torch.serving import CudaEngine, PathServer
+
+    idx, s, t = rooms_s
+    eng = CudaEngine(_artifact(idx, kind, card))
+    srv = PathServer(eng, batch_size=48)
+    srv.warmup(paths=True)
+    before = (TRACES.count, dict(build.BUILDS), dict(build.LOADS))
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
+    srv.query(s, t)
+    srv.query(s[:7], t[:7])
+    srv.query_paths(s[:40], t[:40], host_index=idx)
+    for argmin in (False, True):
+        tk = srv.submit(s, t, want_argmin=argmin)
+        srv.flush()
+        tk.result(timeout=120)
+    srv.stop_async()
+    if kind == "bf16":
+        assert eng.rescue_batches > 0
+    after = (TRACES.count, dict(build.BUILDS), dict(build.LOADS))
+    assert after == before, (before, after)
+    print(f"allocator segments {segments} -> "
+          f"{torch.cuda.memory_stats()['segment.all.allocated']}")
+    PathServer(eng, batch_size=37).query(s[:3], t[:3])
+    assert TRACES.count > before[0]

@@ -176,7 +176,9 @@ def _imports(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    (REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"],
+    (REPO / "src" / "repro_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "examples" / "pathfind_serve_torch.py",
+        REPO / "examples" / "serve_timing_torch.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_neither_jax_nor_reference(path):
     for mod in _imports(path):
