@@ -12,7 +12,7 @@ point location at a cell size that is not a power of two (``check: cell
 3.0``: rooms-S seed 1 at cell 3.0, points on and one float32 ulp below
 every cell boundary, located on the card where the host routing and the
 residual table locate them, served within 1e-4 of the float64 oracle),
-then drives six serving paths, each with the launch counts set to 0 just
+then drives seven serving paths, each with the launch counts set to 0 just
 before it and read just after, and each with a ``warmup:`` line (nvcc
 builds, ctypes loads and cold shape keys met on live traffic after
 ``warmup(paths=True)``, all required to be 0, and the allocator's segment
@@ -24,7 +24,8 @@ count before and after):
   ``PathServer(batch_size=256)`` for 2000 uniform queries (seed 33) plus
   ``query_paths`` on 64 of them (``segvis`` + ``label_join_rowmin``);
 * the single slab: the same index packed by ``pack_index`` (every batch
-  at the global width 512), whose device bytes must equal
+  at the slab's own width, the largest region's label count rounded up to
+  the lane: 384 on rooms-M), whose device bytes must equal
   ``slab_device_bytes`` and whose answers must equal the slab
   ``TorchEngine``'s and the bucketed path's bit for bit; its bf16/u16
   twin is checked once (answers only: distances within 2·qerr of the f32
@@ -44,11 +45,26 @@ count before and after):
   and u16 ids (DESIGN.md §11), whose device bytes must equal the byte
   estimator's, whose distances must lie within 2·qerr of the dense path's
   and whose argmin winners, after the residual rescue, must equal the
-  dense path's bit for bit.
+  dense path's bit for bit;
+* the adaptive path (DESIGN.md §8): the uncompressed rooms-M index (the
+  main path's graph and hub labels) behind an ``IndexManager`` on the CUDA
+  kernels under a device budget of 0.2x its bucketed artifact, served 8
+  rounds of 2000 Cluster-2 queries (seed 101, then seed 202 from round 4:
+  the workload shifts), the manager adapting after each round and, in the
+  shift round, building on its own thread while the continuous batcher
+  serves bursts of 250.  Across every swap the probe answers must stay
+  bit for bit, the device bytes within the budget, the edge tensors
+  aliased, the next live traffic must meet nothing cold and the retired
+  artifact's memory must be freed; the final generation must equal its
+  twin engine on all 5 outputs, the float64 oracle within 1e-4 and, through
+  the batcher, the synchronous path bit for bit.  One line per round
+  (phase, us/query, device bytes, generation, and on a swap the decision,
+  drift and the host seconds of each build stage) and the join cost of the
+  adapted against the uniform-score generation.
 
-Then the f16 layout is checked once (answers only), and a fresh rooms-M
-build is merged to 0.6x the f32 artifact's device bytes under the bf16
-layout (``compress_to_device_budget``) and served.  ``label_join_rowmin``
+Before the adaptive path, the f16 layout is checked once (answers only),
+and a fresh rooms-M build is merged to 0.6x the f32 artifact's device
+bytes under the bf16 layout (``compress_to_device_budget``) and served.  ``label_join_rowmin``
 is also held against its twin with bf16 and f16 distances at every
 main-path width.  The answers are checked against the twin engine on the
 card (bit for bit) and the float64 host oracle (1e-4, plus 2·qerr on a
@@ -102,6 +118,14 @@ GRID_MAP, GRID_SEED = "rooms-S", 0
 TILE_CHUNK = 8192
 # queries per submit of the async path's bursts
 ASYNC_BURST = 250
+# the adaptive path (the reference's adaptive demo on the main map): the
+# uncompressed index under a device budget of 0.2x its bucketed artifact,
+# rounds of Cluster-2 traffic, the workload shifting at the midpoint; the
+# shift round's swap is built while the batcher serves bursts
+ADAPT_BUDGET, ADAPT_ROUNDS, ADAPT_SEEDS = 0.2, 8, (101, 202)
+ADAPT_LOAD_ROUND = ADAPT_ROUNDS // 2
+# allocator granularity: every CUDA caching-allocator block is a multiple
+ALLOC_ROUND = 512
 
 
 def card_line() -> str:
@@ -480,26 +504,35 @@ def within_qerr(a, b, qerr: float) -> bool:
     return bool(np.all(np.abs(a[fin] - b[fin]) <= slack))
 
 
-def oracle_check(d, index, qs, qerr: float = 0.0) -> float:
-    """``d`` against the float64 host oracle on the first ORACLE queries:
-    equal reachability and |d - truth| <= 1e-4·max(1, truth) + 2·qerr.
-    Returns the max relative error."""
+def oracle_rows(index, qs) -> np.ndarray:
+    """The float64 host oracle on the first ORACLE queries of ``qs``."""
     from repro_torch.core.query import query as host_query
 
-    n_or = ORACLE
-    truth = np.array([host_query(index, si, ti, want_path=False)[0]
-                      for si, ti in zip(qs.s[:n_or], qs.t[:n_or])])
-    require(np.array_equal(np.isfinite(d[:n_or]), np.isfinite(truth)),
+    return np.array([host_query(index, si, ti, want_path=False)[0]
+                     for si, ti in zip(qs.s[:ORACLE], qs.t[:ORACLE])])
+
+
+def near_oracle(d, truth, qerr: float = 0.0) -> float:
+    """``d`` against oracle rows ``truth`` (its first len(truth) entries):
+    equal reachability and |d - truth| <= 1e-4·max(1, truth) + 2·qerr.
+    Returns the max relative error."""
+    d = d[:len(truth)]
+    require(np.array_equal(np.isfinite(d), np.isfinite(truth)),
             "reachability differs from the float64 oracle")
     fin = np.isfinite(truth)
-    err = np.abs(d[:n_or][fin] - truth[fin])
-    oracle_err = float(np.max(err / np.maximum(1.0, truth[fin]),
-                              initial=0.0))
+    err = np.abs(d[fin] - truth[fin])
+    rel = float(np.max(err / np.maximum(1.0, truth[fin]), initial=0.0))
     require(bool(np.all(err <= 1e-4 * np.maximum(1.0, truth[fin])
                         + 2 * qerr)),
-            f"distance vs float64 oracle: max rel err {oracle_err} "
+            f"distance vs float64 oracle: max rel err {rel} "
             f"(2·qerr {2 * qerr})")
-    return oracle_err
+    return rel
+
+
+def oracle_check(d, index, qs, qerr: float = 0.0) -> float:
+    """``d`` against the float64 host oracle on the first ORACLE queries
+    (:func:`near_oracle`)."""
+    return near_oracle(d, oracle_rows(index, qs), qerr)
 
 
 def check_answers(srv, twin_srv, run: dict, s, t, index, qs,
@@ -894,6 +927,304 @@ def async_path(bx, dense_got, s, t, kernels, twins, by_path: dict) -> None:
         print(f"  {us / 1e3:9.4f} ms  {count:5d}x  {name[:90]}")
 
 
+def artifact_tensors(art) -> list:
+    """The device tensors of a packed artifact that a repack does not
+    alias (everything but the edge tensors and the edge grid)."""
+    import dataclasses
+
+    import torch
+
+    out = []
+    for f in dataclasses.fields(art):
+        if f.name in ("edges_a", "edges_b", "edges_c", "grid"):
+            continue
+        v = getattr(art, f.name)
+        out += [x for x in (v if isinstance(v, tuple) else (v,))
+                if isinstance(x, torch.Tensor)]
+    return out
+
+
+def unaliased_bytes(art) -> int:
+    """``device_bytes()`` less the aliased edge tensors and grid."""
+    edges = sum(x.numel() * x.element_size()
+                for x in (art.edges_a, art.edges_b, art.edges_c))
+    return art.device_bytes() - edges - (art.grid.device_bytes()
+                                         if art.grid else 0)
+
+
+def allocated_bytes(tensors) -> int:
+    """What the caching allocator holds for ``tensors``: each storage once,
+    rounded up to the allocator's block granularity."""
+    seen = {}
+    for x in tensors:
+        st = x.untyped_storage()
+        seen[st.data_ptr()] = -(-st.nbytes() // ALLOC_ROUND) * ALLOC_ROUND
+    return sum(seen.values())
+
+
+def adaptive_path(scene, graph, index, kernels, twins, dev,
+                  by_path: dict) -> None:
+    """The adaptive index lifecycle on the card (DESIGN.md §8): the
+    uncompressed rooms-M index behind an ``IndexManager`` on the CUDA
+    kernels, served ``ADAPT_ROUNDS`` rounds of Cluster-2 traffic whose
+    distribution shifts at the midpoint.  Each round serves its 2000
+    queries, then asks the manager to adapt; round ``ADAPT_LOAD_ROUND``
+    instead builds its swap on the manager's thread while the continuous
+    batcher serves bursts.  Checks, across every swap: probe answers bit
+    for bit (the manager's ``validate_tol=0``), device bytes within the
+    budget, edge tensors aliased, nothing cold on the next live traffic,
+    the retired artifact's memory freed; then the final generation against
+    its twin engine, the float64 oracle and the batcher."""
+    import gc
+    import weakref
+
+    import torch
+
+    from repro_torch.core import (build_ehl, bucketed_device_bytes,
+                                  cluster_queries)
+    from repro_torch.indexing import IndexManager
+    from repro_torch.serving import (PathServer, TorchEngine,
+                                     expected_join_cost)
+
+    label = f"{MAP} adaptive"
+    print(f"path: {label}")
+    t0 = time.perf_counter()
+    fresh = build_ehl(scene, cell_size=CELL, graph=graph, hl=index.hl)
+    built = time.perf_counter() - t0
+    full = bucketed_device_bytes(fresh)
+    budget = int(full * ADAPT_BUDGET)
+    phases = [cluster_queries(scene, graph, 2, QUERIES, seed=sd,
+                              require_path=False) for sd in ADAPT_SEEDS]
+    pts = [(q.s.astype(np.float32), q.t.astype(np.float32)) for q in phases]
+    truth = [oracle_rows(index, q) for q in phases]
+    for k in kernels.values():
+        k.launches = 0
+    for f in twins:
+        f.calls = 0
+    t0 = time.perf_counter()
+    mgr = IndexManager(fresh, budget, backend="cuda", device=dev,
+                       batch_size=BATCH, min_queries=500,
+                       replan_threshold=0.10, min_dwell=1, probe_n=64,
+                       seed=17, validate_tol=0.0)
+    fit = time.perf_counter() - t0
+    print(f"adaptive: {MAP} uncompressed build_ehl {built:.3f} s (graph and "
+          f"hub labels of the main path); budget {budget} device bytes "
+          f"({ADAPT_BUDGET}x bucketed_device_bytes of the uncompressed "
+          f"index, {full}); initial fit "
+          f"{mgr.device_bytes()} device bytes, "
+          f"{len(mgr.host_index.regions)} regions, widths "
+          f"{mgr.engine.artifact.widths}, manager set-up {fit:.3f} s")
+    require(mgr.device_bytes() <= budget, "initial fit over the budget")
+    # the uniform-score generation's join cost on the shifted workload,
+    # taken before any swap: nothing keeps generation 0 alive past its swap
+    jc_uni = expected_join_cost(mgr.engine.current, *pts[1])
+    srv = PathServer(mgr.engine, batch_size=BATCH, recorder=mgr.recorder)
+    srv.warmup()
+    probe_gen = mgr.probe_answers()     # ragged probe shapes: not traffic
+    warm, warm_gen = cold_state(), 0
+
+    def swap_checks(rnd, prev, m0, probe_pre):
+        """A published swap: probe answers bit for bit, bytes within the
+        budget, edges aliased, the retired artifact's memory freed."""
+        art = mgr.engine.artifact
+        probe_post = mgr.probe_answers()
+        require(np.array_equal(probe_pre, probe_post, equal_nan=True),
+                f"round {rnd}: probe answers changed across the swap")
+        require(mgr.device_bytes() <= budget,
+                f"round {rnd}: {mgr.device_bytes()} device bytes over the "
+                f"budget {budget}")
+        require(all(getattr(art, k).data_ptr() == prev["ptrs"][k]
+                    for k in prev["ptrs"]),
+                f"round {rnd}: the swapped-in edge tensors are not aliased")
+        gc.collect()
+        m1 = torch.cuda.memory_allocated(dev)
+        fall = m0 + allocated_bytes(artifact_tensors(art)) - m1
+        require(prev["ref"]() is None,
+                f"round {rnd}: the retired artifact is still referenced")
+        require(fall >= prev["bytes"],
+                f"round {rnd}: memory_allocated fell {fall} bytes, less "
+                f"than the retired artifact's {prev['bytes']} unaliased")
+        return probe_post, fall
+
+    def live_artifact():
+        art = mgr.engine.artifact
+        return dict(ptrs={k: getattr(art, k).data_ptr()
+                          for k in ("edges_a", "edges_b", "edges_c")},
+                    bytes=unaliased_bytes(art),
+                    ref=weakref.ref(art.hub_ids[0]))
+
+    def swap_line(rec, fall, retired):
+        stages = mgr.telemetry.spans.traces("build")[-1].stages
+        return (f"  SWAP[{rec.kind}] drift {rec.drift:.6f}, regions "
+                f"{rec.regions}, merges {rec.merges}, host seconds: build "
+                f"{rec.build_s:.4f}, repack {stages['repack']:.4f}, "
+                f"validate {rec.validate_s:.4f}, stage "
+                f"{stages['stage']:.4f}, swap {stages['swap']:.6f}; probe "
+                f"max err {rec.probe_max_err}; retired artifact freed "
+                f"({fall} bytes fell, {retired} unaliased)")
+
+    def after_live(rnd):
+        """The ``warmup:`` line of the first live traffic a generation
+        met (taken before any build of this round starts)."""
+        nonlocal warm_gen
+        if mgr.generation > warm_gen or rnd == 0:
+            report_warmup(f"{label} round {rnd} (generation "
+                          f"{mgr.generation})", warm)
+            warm_gen = mgr.generation
+
+    swaps_seen = 0
+    for rnd in range(ADAPT_ROUNDS):
+        phase = 0 if rnd < ADAPT_ROUNDS // 2 else 1
+        s, t = pts[phase]
+        gen0 = mgr.generation
+        if rnd == ADAPT_LOAD_ROUND:
+            prev, m0, us, probe_pre = load_round(
+                srv, mgr, s, t, truth[phase], live_artifact,
+                lambda: after_live(rnd), dev)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.query(s, t)
+            torch.cuda.synchronize()
+            us = 1e6 * (time.perf_counter() - t0) / len(s)
+            after_live(rnd)
+            probe_pre = mgr.probe_answers()
+            require(np.array_equal(probe_pre, probe_gen, equal_nan=True),
+                    f"round {rnd}: probe answers moved within a generation")
+            prev = live_artifact()
+            gc.collect()
+            m0 = torch.cuda.memory_allocated(dev)
+            mgr.maybe_adapt()
+        line = (f"round {rnd} phase {phase}"
+                + (" (swap built under batcher load)"
+                   if rnd == ADAPT_LOAD_ROUND else "")
+                + f": {us:.3f} us/query, device bytes "
+                f"{mgr.device_bytes()}, generation {mgr.generation}")
+        if mgr.generation > gen0:
+            require(mgr.generation == gen0 + 1, "two swaps in one round")
+            swaps_seen += 1
+            probe_gen, fall = swap_checks(rnd, prev, m0, probe_pre)
+            line += "\n" + swap_line(mgr.history[-1], fall, prev["bytes"])
+            warm = cold_state()
+        print(line)
+        del prev
+    require(mgr.swaps >= 2 and swaps_seen == mgr.swaps,
+            f"adaptive: {mgr.swaps} swaps (need >= 2)")
+    require(mgr.validation_failures == 0,
+            f"adaptive: {mgr.validation_failures} validation failures")
+
+    # the final generation: batcher == sync, then nothing cold since the
+    # last swap, then the launches of the path
+    s, t = pts[1]
+    want = srv.query(s, t)
+    tickets = [srv.submit(s[i:i + ASYNC_BURST], t[i:i + ASYNC_BURST])
+               for i in range(0, len(s), ASYNC_BURST)]
+    srv.flush()
+    require(srv.drain(timeout=120), "adaptive: async drain timed out")
+    srv.stop_async()
+    got = np.concatenate([tk.result(timeout=1) for tk in tickets])
+    require(np.array_equal(got, want),
+            "adaptive: async answers on the final generation != sync")
+    report_warmup(f"{label} final generation {mgr.generation}", warm)
+    launches = {n: k.launches for n, k in kernels.items()}
+    calls = {f.__name__: f.calls for f in twins}
+    by_path[label] = launches
+    print("launches: adaptive path: " + ", ".join(
+        f"{n} {v}" for n, v in launches.items()))
+    require(launches["segvis"] > 0 and launches["label_join_rowmin"] > 0
+            and launches["segvis_tiles"] == 0,
+            f"adaptive path launches: {launches}")
+    require(all(v == 0 for v in calls.values()),
+            f"the adaptive path ran a twin: {calls}")
+    print(f"check: adaptive final generation: batcher == sync bit for bit "
+          f"({len(s)} queries, {len(tickets)} bursts of {ASYNC_BURST})")
+
+    # the final generation against its twin engine and the oracle
+    final = mgr.engine.current
+    cgot = PathServer(final, batch_size=BATCH)._dispatch(s, t, True)
+    tgot = PathServer(TorchEngine(mgr.engine.artifact),
+                      batch_size=BATCH)._dispatch(s, t, True)
+    for name, a, b in zip(ANSWERS, cgot, tgot):
+        require(np.array_equal(a, b),
+                f"adaptive final CudaEngine vs TorchEngine output {name}")
+    require(np.array_equal(cgot[0], want), "adaptive argmin d != served d")
+    err = near_oracle(want, truth[1])
+    jc_adapt = expected_join_cost(final, s, t)
+    print(f"check: adaptive final generation {mgr.generation}: CudaEngine =="
+          f" TorchEngine on all 5 outputs ({len(s)} queries); vs float64 "
+          f"oracle on {ORACLE}: reachability equal, max rel err {err:.3e}")
+    print(f"join cost: shifted workload, mean dispatch width^2: adapted "
+          f"{jc_adapt:.1f} vs uniform-score generation 0 {jc_uni:.1f} "
+          f"(expected_join_cost)")
+    st = mgr.stats()
+    print(f"lifecycle: {st}; serve: generation {srv.stats.generation}, "
+          f"swaps seen {srv.stats.swaps}, stale_batches "
+          f"{srv.stats.stale_batches}, requeued_batches "
+          f"{srv.stats.requeued_batches}")
+    require(st["retired_pending"] == 0 and st["drops"] == st["swaps"],
+            f"adaptive: retired generations not all dropped: {st}")
+    spread_and_profile(srv, s, t)
+
+
+def load_round(srv, mgr, s, t, truth, live_artifact, after_live, dev):
+    """The shift round under load: half the round's queries go through the
+    continuous batcher in bursts of ASYNC_BURST and are drained (recorded),
+    then ``maybe_adapt(block=False)`` builds on the manager's thread while
+    the batcher takes full passes of the round's queries in bursts, pass
+    after pass, until the build ends.  Every ticket must complete and
+    answer within 1e-4 of the float64 oracle; the swap must be published.
+    Returns (the live artifact before the swap, memory allocated then,
+    the round's us/query through the batcher, the probe answers before the
+    swap)."""
+    import gc
+
+    import torch
+
+    n = len(s)
+    bursts = [(i, min(n, i + ASYNC_BURST)) for i in range(0, n, ASYNC_BURST)]
+    half = len(bursts) // 2
+    t0 = time.perf_counter()
+    first = [srv.submit(s[a:b], t[a:b]) for a, b in bursts[:half]]
+    srv.flush()
+    require(srv.drain(timeout=120), "load round: drain timed out")
+    after_live()
+    probe_pre = mgr.probe_answers()
+    prev = live_artifact()
+    gc.collect()
+    m0 = torch.cuda.memory_allocated(dev)
+    gen0, stale0, requeued0 = (mgr.generation, srv.stats.stale_batches,
+                               srv.stats.requeued_batches)
+    mgr.maybe_adapt(block=False)
+    require(mgr.building, "load round: the manager started no build")
+    tickets = []
+    while True:
+        tickets.append([srv.submit(s[a:b], t[a:b]) for a, b in bursts])
+        if not mgr.building or len(tickets) >= 200:
+            break
+    mgr.join(timeout=300)
+    require(not mgr.building, "load round: the build did not finish")
+    srv.flush()
+    require(srv.drain(timeout=120), "load round: drain timed out")
+    wall = time.perf_counter() - t0
+    queries = half * ASYNC_BURST
+    done = [tk.result(timeout=1) for tk in first]
+    err = near_oracle(np.concatenate(done), truth[:half * ASYNC_BURST])
+    for group in tickets:
+        d = np.concatenate([tk.result(timeout=1) for tk in group])
+        err = max(err, near_oracle(d, truth))
+        queries += len(d)
+    require(mgr.generation == gen0 + 1,
+            "load round: the swap built under load was not published")
+    print(f"load: {queries} queries in {len(tickets)} batcher passes while "
+          f"the swap built ({sum(len(g) for g in tickets) + len(first)} "
+          f"tickets, all complete, max rel err vs float64 oracle "
+          f"{err:.3e}); "
+          f"requeued_batches {srv.stats.requeued_batches - requeued0}, "
+          f"stale_batches {srv.stats.stale_batches - stale0}")
+    srv.stop_async()
+    return prev, m0, 1e6 * wall / queries, probe_pre
+
+
 def main() -> None:
     import torch
 
@@ -1129,6 +1460,9 @@ def main() -> None:
 
     # -- 10. a device-budgeted bf16 artifact ----------------------------------
     budgeted_artifact(scene, graph, bx, s, t, qs, dev)
+
+    # -- 10b. the adaptive index lifecycle: capture, replan, hot swap ---------
+    adaptive_path(scene, graph, index, kernels, twins, dev, by_path)
 
     # -- 11. kernel times beside the twins' and the bound ---------------------
     def bound(nbytes: float, ops: float) -> tuple[float, str]:

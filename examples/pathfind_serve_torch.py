@@ -12,6 +12,17 @@ stats — the paper's online phase as a service:
     PYTHONPATH=src python examples/pathfind_serve_torch.py --device cpu \\
         --map rooms-S --queries 64 --batch 16 --paths 8 --serve-async
 
+``--clusters K`` compresses workload-aware: the Eq. 5 scores come from a
+2000-query Cluster-K history (``workload_scores``, alpha 0.2).
+
+``--adaptive`` instead runs the closed-loop demo (DESIGN.md §8): serve a
+clustered workload, shift it mid-run, and watch the index manager capture
+the live distribution, recompress under the device-byte budget and
+hot-swap the artifact with zero downtime:
+
+    PYTHONPATH=src python examples/pathfind_serve_torch.py --device cpu \\
+        --adaptive --map rooms-S --queries 250 --budget 0.4 --rounds 6
+
 Self-checks (exit non-zero on failure): a second pass answers bit for bit
 as the first; ``--paths N`` unwinds N paths from the batched argmin and
 requires ``|len(path) - d| <= 1e-4 * max(1, d)``; ``--quantize`` requires
@@ -19,10 +30,13 @@ the device-byte drop, distances within 2*qerr of the f32 engine and argmin
 winners equal to it bit for bit; ``--serve-async`` serves a burst and a
 trickle through the continuous batcher and requires answers equal to the
 synchronous path's bit for bit, at least one full-batch flush and one
-deadline flush.  ``--backend cuda`` (and the default ``--device cuda``)
-exits non-zero without a card.  Workload-aware compression, adaptive
-re-indexing, sharding and the telemetry export come with later slices of
-the port.
+deadline flush; ``--adaptive`` requires at least ``--min-swaps`` swaps, no
+failed probe validation, probe answers equal across every swap boundary
+(within the quantization bounds with ``--quantize``) and every artifact
+within the budget, and with ``--serve-async`` ends with the async check on
+the final generation.  ``--backend cuda`` (and the default ``--device
+cuda``) exits non-zero without a card.  Sharding and the telemetry export
+come with later slices of the port.
 """
 
 import argparse
@@ -36,18 +50,24 @@ if str(ROOT / "src") not in sys.path:
     sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import (build_ehl, build_visgraph,  # noqa: E402
-                              bucketed_device_bytes, compress_to_fraction,
-                              make_map, pack_bucketed, pack_index,
-                              path_length, plan_buckets, slab_device_bytes,
-                              slab_layout, uniform_queries)
+                              bucketed_device_bytes, cluster_queries,
+                              compress_to_fraction, make_map, pack_bucketed,
+                              pack_index, path_length, plan_buckets,
+                              slab_device_bytes, slab_layout, uniform_queries,
+                              workload_scores)
 from repro_torch.core.packed import empty_results, resolve_device  # noqa
-from repro_torch.serving import PathServer, make_engine  # noqa: E402
+from repro_torch.indexing import IndexManager  # noqa: E402
+from repro_torch.serving import (PathServer, expected_join_cost,  # noqa
+                                 make_engine)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--map", default="rooms-M")
     ap.add_argument("--budget", type=float, default=0.2)
+    ap.add_argument("--clusters", type=int, default=0,
+                    help="workload-aware compression from a Cluster-K "
+                         "history (0: uniform scores)")
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--layout", choices=("bucketed", "slab"),
@@ -73,6 +93,20 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-async", action="store_true",
                     help="also serve through the continuous batcher and "
                          "check it bit for bit against the synchronous path")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="adaptive serving demo: live workload capture -> "
+                         "budgeted recompression -> zero-downtime hot swap "
+                         "(repro_torch.indexing); shifts the workload "
+                         "mid-run")
+    ap.add_argument("--rounds", type=int, default=8,
+                    help="[adaptive] serving rounds (the workload shifts "
+                         "at the midpoint)")
+    ap.add_argument("--min-swaps", type=int, default=1,
+                    help="[adaptive] exit non-zero unless at least this "
+                         "many hot swaps were published")
+    ap.add_argument("--async-swap", action="store_true",
+                    help="[adaptive] build/validate/swap on a background "
+                         "thread instead of between rounds")
     args = ap.parse_args(argv)
     backend = args.backend
     if backend != "host":
@@ -81,18 +115,26 @@ def main(argv=None) -> int:
         except RuntimeError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
-    if backend == "host" and args.quantize != "off":
-        print("error: --quantize needs a device backend (torch | cuda)",
-              file=sys.stderr)
+    if backend == "host" and (args.quantize != "off" or args.adaptive):
+        print("error: --quantize and --adaptive need a device backend "
+              "(torch | cuda)", file=sys.stderr)
         return 2
+    if args.adaptive:
+        return run_adaptive(args, backend)
 
     scene = make_map(args.map, seed=0)
     graph = build_visgraph(scene)
     index = build_ehl(scene, cell_size=2.0, graph=graph)
     full_mb = index.label_memory() / 1e6
-    stats = compress_to_fraction(index, args.budget)
+    scores, alpha = None, 0.0
+    if args.clusters > 0:
+        hist = cluster_queries(scene, graph, args.clusters, 2000, seed=9,
+                               require_path=False)
+        scores, alpha = workload_scores(index, hist), 0.2
+    stats = compress_to_fraction(index, args.budget, cell_scores=scores,
+                                 alpha=alpha)
     print(f"index: {full_mb:.1f} MB -> {stats.final_bytes / 1e6:.1f} MB "
-          f"({args.budget:.0%} budget)")
+          f"({args.budget:.0%} budget, workload-aware={args.clusters > 0})")
 
     # only the layout that serves is materialized on the device; the other
     # side of the comparison is the analytic estimate
@@ -186,6 +228,106 @@ def main(argv=None) -> int:
         if err > 1e-4 + 2 * qerr:
             print("PATHS SMOKE FAILED: path lengths disagree with d")
             return 1
+    return 0
+
+
+def run_adaptive(args, backend: str) -> int:
+    """Closed-loop demo: the served workload shifts mid-run and the index
+    manager recompresses and hot-swaps to follow it, holding the device-byte
+    budget throughout.  Returns non-zero unless at least ``--min-swaps``
+    swaps happened with probe answers stable across every swap boundary."""
+    dev = args.device
+    scene = make_map(args.map, seed=0)
+    graph = build_visgraph(scene)
+    index = build_ehl(scene, cell_size=2.0, graph=graph)
+    lay = None if args.quantize == "off" else slab_layout(args.quantize)
+    budget = int(bucketed_device_bytes(index) * args.budget)
+    # validate_tol=0: a candidate goes live only if its probe answers equal
+    # the live artifact's bit for bit (quantized layouts widen it by the two
+    # generations' quantization bounds), the criterion checked below
+    mgr = IndexManager(index, budget, backend=backend, device=dev,
+                       batch_size=args.batch,
+                       min_queries=max(64, args.queries // 4),
+                       replan_threshold=0.10, min_dwell=1, probe_n=64,
+                       seed=17, validate_tol=0.0, layout=lay)
+    k = max(2, args.clusters)
+    phases = [cluster_queries(scene, graph, k, args.queries, seed=seed,
+                              require_path=False) for seed in (101, 202)]
+    s2 = phases[1].s.astype(np.float32)
+    t2 = phases[1].t.astype(np.float32)
+    # the uniform-score generation's join cost, taken now so that no
+    # reference to generation 0 outlives its swap
+    jc_uni = expected_join_cost(mgr.engine.current, s2, t2)
+    srv = PathServer(mgr.engine, batch_size=args.batch,
+                     recorder=mgr.recorder)
+    srv.warmup()
+    print(f"adaptive: budget={budget / 1e6:.3f} MB (x{args.budget:.2f} of "
+          f"the uncompressed artifact), initial device="
+          f"{mgr.device_bytes() / 1e6:.3f} MB, backend={backend}, "
+          f"device={dev}")
+
+    half = max(1, args.rounds // 2)
+    failures = []
+    lat = {0: [], 1: []}
+    for rnd in range(args.rounds):
+        phase = 0 if rnd < half else 1
+        qs = phases[phase]
+        srv.stats.seconds = 0.0
+        srv.stats.queries = 0
+        srv.query(qs.s.astype(np.float32), qs.t.astype(np.float32))
+        lat[phase].append(srv.stats.us_per_query)
+
+        probe_pre = mgr.probe_answers()
+        qe_pre = mgr._qerr_of(mgr.engine.artifact)
+        if args.async_swap:
+            gen = mgr.generation
+            mgr.maybe_adapt(block=False)
+            mgr.join()
+            swapped = mgr.generation > gen
+        else:
+            swapped = mgr.maybe_adapt()
+        if swapped:
+            probe_post = mgr.probe_answers()
+            both_inf = ~np.isfinite(probe_pre) & ~np.isfinite(probe_post)
+            diff = np.abs(np.where(both_inf, 0.0, probe_post - probe_pre))
+            tol = 2.0 * (qe_pre + mgr._qerr_of(mgr.engine.artifact))
+            if not np.all(diff <= tol):
+                failures.append(f"round {rnd}: probe answers changed "
+                                "across the swap boundary")
+            if mgr.device_bytes() > budget:
+                failures.append(f"round {rnd}: swapped-in artifact "
+                                f"{mgr.device_bytes()}B over budget")
+        rec = mgr.history[-1] if swapped else None
+        print(f"round {rnd} phase {phase}: "
+              f"{srv.stats.us_per_query:8.1f} us/query  "
+              f"device={mgr.device_bytes() / 1e6:6.3f} MB  "
+              f"gen={mgr.generation}"
+              + (f"  SWAP[{rec.kind}] drift={rec.drift:.3f} "
+                 f"build={rec.build_s:.2f}s pack={rec.pack_s:.2f}s "
+                 f"validate={rec.validate_s:.2f}s "
+                 f"probe_err={rec.probe_max_err:.1e}" if swapped else ""))
+
+    jc_adapt = expected_join_cost(mgr.engine.current, s2, t2)
+    p50 = {ph: float(np.median(v)) for ph, v in lat.items() if v}
+    print(f"phase p50 latency: {p50} us/query")
+    print(f"post-swap join cost on the shifted workload: adapted="
+          f"{jc_adapt:.0f} vs uniform-score={jc_uni:.0f} (mean dispatch "
+          f"width^2; {'better' if jc_adapt <= jc_uni else 'WORSE'})")
+    print(f"lifecycle: {mgr.stats()}")
+    print(f"serve stats: gen={srv.stats.generation} swaps={srv.stats.swaps} "
+          f"stale_batches={srv.stats.stale_batches}")
+    if mgr.swaps < args.min_swaps:
+        failures.append(f"only {mgr.swaps} swaps, need >= {args.min_swaps}")
+    if mgr.validation_failures:
+        failures.append(f"{mgr.validation_failures} probe validations "
+                        "failed (swap aborted)")
+    if args.serve_async:
+        failures += check_async(srv, s2, t2, "adaptive")
+    if failures:
+        print("ADAPTIVE SMOKE FAILED:\n  " + "\n  ".join(failures))
+        return 1
+    print(f"adaptive smoke OK: {mgr.swaps} hot swap(s), answers stable, "
+          f"budget held")
     return 0
 
 

@@ -15,4 +15,6 @@ from .packed import (LAYOUT_F32, TRACES, BucketedIndex,    # noqa: F401
                      slab_label_slots, slab_layout)
 from .query import path_length, query, unwind_path         # noqa: F401
 from .visgraph import build_visgraph                       # noqa: F401
-from .workload import uniform_queries                      # noqa: F401
+from .workload import (QuerySet, cluster_queries,         # noqa: F401
+                       historical_workload, make_clusters,
+                       mixed_queries, uniform_queries, workload_scores)

@@ -722,6 +722,7 @@ def bucketed_device_bytes(index: EHLIndex, lane: int = 128,
 
 
 def pack_bucketed(index: EHLIndex, lane: int = 128,
+                  reuse_edges_from: "BucketedIndex | PackedIndex | None" = None,
                   edge_grid: bool | None = None,
                   layout: SlabLayout = LAYOUT_F32,
                   device="cuda") -> BucketedIndex:
@@ -731,14 +732,25 @@ def pack_bucketed(index: EHLIndex, lane: int = 128,
     bucket that holds its label count, so padding waste is < 50% per region
     instead of being governed by the single largest merged region.
 
+    ``reuse_edges_from``: the repack fast path of the adaptive hot-swap
+    loop.  The scene (and so the padded edge tensors and the edge grid built
+    from them) never changes across recompressions, so the previous
+    artifact's ``edges_a/b/c`` and ``grid`` tensors are aliased, not copied
+    or uploaded again.  That artifact must live on ``device``.
+
     ``edge_grid``: ``None`` attaches the §10 edge grid when pruning pays,
-    ``True``/``False`` force it on/off.
+    ``True``/``False`` force it on/off (ignored when reusing: the previous
+    artifact's decision carries over with its tensors).
 
     ``layout``: quantized layouts store distances narrow, ids u16-delta,
     drop ``via_xy`` for the shared vertex table, and attach the host-side
     :class:`ResidualTable` the exact-argmin rescue reads (DESIGN.md §11).
     """
     dev = resolve_device(device)
+    if reuse_edges_from is not None and \
+            _device_key(reuse_edges_from.device) != _device_key(dev):
+        raise ValueError(f"reuse_edges_from lives on "
+                         f"{reuse_edges_from.device}, not on {dev}")
     live, packs = _host_packs(index)
     _, widths, region_bucket = plan_buckets(index, lane)
     region_row = np.zeros(len(live), dtype=np.int32)
@@ -754,9 +766,16 @@ def pack_bucketed(index: EHLIndex, lane: int = 128,
             _fill_row(arrs, row, packs[i])
         slabs.append(arrs)
 
-    ea, eb, ec = _pack_edges(index, lane)
-    grid = _maybe_grid(ea, eb, index.scene.edges.shape[0], index.scene,
-                       edge_grid, dev)
+    edges = None
+    if reuse_edges_from is not None:
+        edges = (reuse_edges_from.edges_a, reuse_edges_from.edges_b,
+                 reuse_edges_from.edges_c)
+        ea = eb = ec = None
+        grid = reuse_edges_from.grid
+    else:
+        ea, eb, ec = _pack_edges(index, lane)
+        grid = _maybe_grid(ea, eb, index.scene.edges.shape[0], index.scene,
+                           edge_grid, dev)
     mapper = _cell_mapper(index, live)
     planes = dict(
         hub_ids=[a[0] for a in slabs], via_xy=[a[1] for a in slabs],
@@ -777,7 +796,7 @@ def pack_bucketed(index: EHLIndex, lane: int = 128,
             residual=ResidualTable(
                 [a[2] for a in slabs], region_bucket, region_row, mapper,
                 widths, index.nx, index.ny, float(index.cell_size)))
-    return _to_device(planes, dev)
+    return _to_device(planes, dev, edges=edges)
 
 
 _PLANES = ("mapper", "region_bucket", "region_row",
@@ -806,9 +825,24 @@ def _put(a, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=dev)
 
 
-def _to_device(planes: dict, dev: torch.device) -> BucketedIndex:
+def _device_key(dev: torch.device) -> tuple:
+    """(type, index) of a device, a bare ``cuda`` read as the current card."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return dev.type, torch.cuda.current_device()
+    return dev.type, dev.index
+
+
+def _to_device(planes: dict, dev: torch.device,
+               edges: tuple | None = None) -> BucketedIndex:
+    """The artifact of ``planes`` on ``dev``; ``edges``, when given, are
+    device tensors ``(edges_a, edges_b, edges_c)`` taken as they are
+    (aliased), in place of the planes' own."""
     def put(a):
         return _put(a, dev)
+
+    aliased = {} if edges is None else dict(
+        zip(("edges_a", "edges_b", "edges_c"), edges))
 
     grid = planes.get("grid")
     if isinstance(grid, dict):
@@ -830,7 +864,8 @@ def _to_device(planes: dict, dev: torch.device) -> BucketedIndex:
             layout=layout, residual=planes.get("residual"))
     return BucketedIndex(
         **{k: tuple(put(a) for a in planes[k]) for k in _SLABS},
-        **{k: put(planes[k]) for k in _PLANES},
+        **{k: aliased[k] if k in aliased else put(planes[k])
+           for k in _PLANES},
         nx=int(planes["nx"]), ny=int(planes["ny"]),
         cell_size=float(planes["cell_size"]), width=float(planes["width"]),
         height=float(planes["height"]),

@@ -7,9 +7,11 @@ source, every shared header ``csrc/*.cuh`` and the flags: a changed source
 or header is rebuilt, an unchanged one is loaded as it is.  Builds happen
 at first use, never at import.  A build writes to a private temporary name
 and renames it into place, so processes that build the same source at once
-never load a half-written library.  ``BUILDS`` and ``LOADS`` count the
-nvcc builds and ``ctypes`` loads per source, so a warmed server can check
-that live traffic built and loaded nothing.
+never load a half-written library.  Within one process, :func:`build` and
+:func:`load` run under one lock, so two threads that meet a kernel first
+at the same moment make one build and one load.  ``BUILDS`` and ``LOADS``
+count the nvcc builds and ``ctypes`` loads per source, so a warmed server
+can check that live traffic built and loaded nothing.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -28,6 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("segvis", "label_join", "segvis_tiles")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# serialises build() and load() across threads (the adaptive manager's
+# build thread warms kernels beside the serving threads); a plain lock, as
+# it guards no serving state and nests under none
+_LOCK = threading.Lock()
 BUILDS: dict[str, int] = {}     # source name -> nvcc builds in this process
 LOADS: dict[str, int] = {}      # source name -> ctypes loads in this process
 
@@ -76,6 +83,11 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     memory report) for the sources built by this call; raises with the
     compiler's output when a build fails.
     """
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names) -> dict[str, str]:
     jobs = {n: job for n in names if (job := _start(n)) is not None}
     for n in jobs:
         BUILDS[n] = BUILDS.get(n, 0) + 1
@@ -96,7 +108,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        build((name,))
-        lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
-        LOADS[name] = LOADS.get(name, 0) + 1
+        with _LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                _build((name,))
+                lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+                LOADS[name] = LOADS.get(name, 0) + 1
     return lib

@@ -17,9 +17,17 @@ import threading
 #: name -> rank (lower = acquired first).  A subset of the reference's
 #: table: the locks the port makes.
 LOCK_RANKS: dict[str, int] = {
+    "indexing.adapt": 10,       # IndexManager._adapt_lock (one rebuild)
     "batcher.queue": 20,        # CoalescingBatcher queue/condition
+    "engine.swap": 30,          # SwappableEngine pin/swap pointer flip
     "batcher.ticket": 40,       # Ticket result scatter
-    "obs.series": 70,           # counter mutation (leaf): core.packed.TRACES
+    "workload.recorder": 50,    # WorkloadRecorder histogram
+    "obs.registry": 60,         # MetricsRegistry series creation
+    "obs.series": 70,           # Counter/Gauge/Histogram mutation (leaf),
+    #                             core.packed.TRACES
+    "obs.events": 80,           # EventLog ring + JSONL sink (leaf)
+    "obs.spans": 85,            # TraceLog ring (leaf)
+    "obs.sampler": 90,          # HeadSampler accumulator (leaf)
 }
 
 

@@ -27,8 +27,10 @@ pays a full padded batch for every half-empty tail group.  The
   (``stale_batches``).
 
 Results come back through :class:`Ticket` futures, scattered into the
-submit order of each ticket whichever flush group answered them.  Admission,
-queue-depth and flush-reason counters land in the server's ``ServeStats``.
+submit order of each ticket whichever flush group answered them; the
+server's workload recorder, when it has one, sees every retired query.
+Admission, queue-depth and flush-reason counters land in the server's
+``ServeStats``.
 """
 
 from __future__ import annotations
@@ -416,6 +418,11 @@ class CoalescingBatcher:
             dt = time.perf_counter() - f.t_launch
             n = len(f.entries)
             outs = [o[:n] for o in outs]
+            if srv._recorder is not None:
+                # recorded before the tickets complete, so a caller that
+                # holds its results also sees them in the workload
+                srv._recorder.record(np.stack([e.s for e in f.entries]),
+                                     np.stack([e.t for e in f.entries]))
             per_ticket: dict = collections.defaultdict(lambda: ([], []))
             for bi, e in enumerate(f.entries):
                 rows, slots = per_ticket[e.ticket]

@@ -8,6 +8,8 @@ keeps the kernels' shapes steady), answered, and scattered back into
 request order.  Per-bucket latency/occupancy counters make the routing
 observable.  ``start_async``/``submit``/``flush``/``drain``/``stop_async``
 front the same engine with the continuous batcher (``serving.batcher``).
+A ``recorder`` (``indexing.WorkloadRecorder``) is fed every answered
+query, synchronous or through the batcher, for adaptive re-indexing.
 """
 
 from __future__ import annotations
@@ -80,23 +82,38 @@ class ServeStats:
         return self.queries / max(1e-9, self.seconds)
 
 
+def expected_join_cost(engine, s, t) -> float:
+    """Expected per-query join cost on a workload: mean dispatch-width^2.
+
+    The O(W^2) label join is what a query pays at its dispatch width; a
+    workload-aware index keeps hot regions in narrow buckets, so this is
+    the metric the adaptive demo compares against the uniform-score index
+    (smaller = cheaper hot path).  Host arithmetic on the routing only.
+    """
+    buckets = engine.buckets_of(s, t)
+    widths = np.array([engine.bucket_width(int(k)) for k in buckets])
+    return float(np.mean(widths.astype(np.float64) ** 2))
+
+
 class PathServer:
     """Fixed-batch ESPP query server over a pluggable query engine.
 
     ``index`` may be a ready-made :class:`QueryEngine`, a packed
     PackedIndex or BucketedIndex, or a host EHLIndex (packed bucketed onto
     ``device``); all but the first are wrapped in a ``backend`` engine
-    (``make_engine``).
+    (``make_engine``).  ``recorder``: a workload recorder (``record(s, t)``)
+    that every answered query is folded into.
     """
 
     def __init__(self, index, batch_size: int = 256, backend: str = "cuda",
-                 device="cuda"):
+                 device="cuda", recorder=None):
         if isinstance(index, QueryEngine):
             self.engine = index
         else:
             self.engine = make_engine(index, backend=backend, device=device)
         self.batch_size = batch_size
         self.stats = ServeStats()
+        self._recorder = recorder
         self._batcher = None        # continuous batching: start_async()
 
     def warmup(self, paths: bool = False):
@@ -203,6 +220,8 @@ class PathServer:
             # a swap published while this request served on the old pin
             self.stats.stale_batches += self.stats.batches - b0
         self.stats.generation = gen0
+        if self._recorder is not None and n:
+            self._recorder.record(s, t)
         return outs
 
     def query(self, s: np.ndarray, t: np.ndarray) -> np.ndarray:
@@ -229,6 +248,8 @@ class PathServer:
         if isinstance(self.engine, HostEngine):
             paths = self.engine.paths(s, t)
             d = np.array([path_length(p) for p in paths], dtype=np.float32)
+            if self._recorder is not None and len(s):
+                self._recorder.record(s, t)
         else:
             if host_index is None:
                 raise ValueError("query_paths on a device engine needs the "

@@ -565,3 +565,199 @@ def test_warmup_leaves_nothing_cold_on_card(card, rooms_s, kind):
           f"{torch.cuda.memory_stats()['segment.all.allocated']}")
     PathServer(eng, batch_size=37).query(s[:3], t[:3])
     assert TRACES.count > before[0]
+
+
+# ---------------------------------------------------------------------------
+# adaptive indexing on the card: repack aliasing, hot swap, freed memory
+# ---------------------------------------------------------------------------
+
+def _adaptive_manager(card, fraction=0.45, layout=None, seed=13):
+    from repro_torch.core import bucketed_device_bytes
+    from repro_torch.indexing import IndexManager
+
+    scene = make_map("rooms-S", seed=1)
+    graph = build_visgraph(scene)
+    idx = build_ehl(scene, cell_size=2.0, graph=graph)
+    budget = int(bucketed_device_bytes(idx) * fraction)
+    mgr = IndexManager(idx, budget, backend="cuda", device=card,
+                       batch_size=32, min_queries=60, replan_threshold=0.10,
+                       probe_n=32, seed=seed, validate_tol=0.0,
+                       layout=layout)
+    return mgr, budget, scene, graph
+
+
+def _cluster(scene, graph, n, seed):
+    from repro_torch.core import cluster_queries
+
+    qs = cluster_queries(scene, graph, 2, n, seed=seed, require_path=False)
+    return qs.s.astype(np.float32), qs.t.astype(np.float32)
+
+
+def _kept_tensors(art):
+    """The artifact's device tensors a repack does not alias."""
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(art):
+        if f.name in ("edges_a", "edges_b", "edges_c", "grid"):
+            continue
+        v = getattr(art, f.name)
+        out += [x for x in (v if isinstance(v, tuple) else (v,))
+                if isinstance(x, torch.Tensor)]
+    return out
+
+
+def test_swap_frees_retired_artifact_on_card(card):
+    """A swap with nothing pinned drops the retired artifact: after
+    ``gc.collect()`` ``memory_allocated()`` has fallen, beside what the new
+    artifact holds, by at least the old one's unaliased bytes, and nothing
+    references its slabs."""
+    import gc
+    import weakref
+
+    mgr, budget, scene, graph = _adaptive_manager(card)
+    mgr.recorder.record(*_cluster(scene, graph, 150, seed=31))
+    old = mgr.engine.artifact
+    edges = sum(x.numel() * x.element_size()
+                for x in (old.edges_a, old.edges_b, old.edges_c))
+    unaliased = old.device_bytes() - edges
+    ref_slab = weakref.ref(old.hub_ids[0])
+    del old
+    gc.collect()
+    m0 = torch.cuda.memory_allocated(card)
+    assert mgr.maybe_adapt() is True
+    gc.collect()
+    m1 = torch.cuda.memory_allocated(card)
+    new_alloc = sum(-(-x.untyped_storage().nbytes() // 512) * 512
+                    for x in _kept_tensors(mgr.engine.artifact))
+    assert ref_slab() is None
+    assert m0 + new_alloc - m1 >= unaliased, (m0, m1, new_alloc, unaliased)
+    assert mgr.engine.drops == 1 and mgr.device_bytes() <= budget
+
+
+@pytest.mark.parametrize("case", ["dense", "grid"])
+def test_reuse_edges_aliases_on_card(card, case):
+    """``pack_bucketed(reuse_edges_from=)`` aliases the card's edge tensors
+    (and the grid of rooms-S seed 0, whose serving then launches
+    ``segvis_tiles``); the repacked artifact answers as a fresh pack, bit
+    for bit."""
+    from repro_torch.serving import CudaEngine, PathServer
+
+    scene = make_map("rooms-S", seed=1 if case == "dense" else 0)
+    graph = build_visgraph(scene)
+    idx = build_ehl(scene, cell_size=2.0, graph=graph)
+    prev = pack_bucketed(idx, device=card)
+    assert (prev.grid is not None) == (case == "grid")
+    compress_to_fraction(idx, 0.3)
+    bx = pack_bucketed(idx, reuse_edges_from=prev, device=card)
+    for k in ("edges_a", "edges_b", "edges_c"):
+        assert getattr(bx, k).data_ptr() == getattr(prev, k).data_ptr()
+    assert bx.grid is prev.grid
+    qs = uniform_queries(scene, graph, 200, seed=5, require_path=False)
+    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    tiles = segvis_tiles.launches
+    got = PathServer(CudaEngine(bx), batch_size=64)._dispatch(s, t, True)
+    assert (segvis_tiles.launches > tiles) == (case == "grid")
+    want = PathServer(CudaEngine(pack_bucketed(idx, device=card)),
+                      batch_size=64)._dispatch(s, t, True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="lives on"):
+        pack_bucketed(idx, reuse_edges_from=prev, device="cpu")
+
+
+def test_background_adapt_while_serving_on_card(card):
+    """``maybe_adapt(block=False)`` builds, validates, warms and swaps on
+    the manager's thread while ``PathServer.query`` serves on this one;
+    every answer of every pass stays within 1e-4 of the float64 oracle."""
+    from repro_torch.core.query import query as host_query
+    from repro_torch.serving import PathServer
+
+    mgr, budget, scene, graph = _adaptive_manager(card, fraction=0.5,
+                                                  seed=29)
+    srv = PathServer(mgr.engine, batch_size=32, recorder=mgr.recorder)
+    srv.warmup()
+    s, t = _cluster(scene, graph, 120, seed=61)
+    truth = np.array([host_query(mgr.host_index, a, b, want_path=False)[0]
+                      for a, b in zip(s, t)])
+    srv.query(s, t)
+    assert mgr.maybe_adapt(block=False) is False
+    passes = 0
+    while True:
+        building = mgr.building
+        d = srv.query(s, t)
+        passes += 1
+        fin = np.isfinite(truth)
+        np.testing.assert_array_equal(np.isfinite(d), fin)
+        np.testing.assert_allclose(d[fin], truth[fin], rtol=1e-4, atol=1e-4)
+        if not building:
+            break
+    mgr.join(timeout=120)
+    assert passes >= 2 and mgr.swaps == 1 and mgr.validation_failures == 0
+    assert mgr.device_bytes() <= budget
+    assert srv.stats.generation == mgr.generation
+
+
+def test_bf16_manager_swap_winners_equal_f32_on_card(card):
+    """A bf16 manager swaps (probe tolerance widened by the generations'
+    quantization bounds), and the swapped-in artifact's argmin winners,
+    after the residual rescue, equal the f32 engine's on the same regions
+    bit for bit."""
+    from repro_torch.serving import CudaEngine, PathServer
+
+    mgr, budget, scene, graph = _adaptive_manager(card, fraction=0.2,
+                                                  layout="bf16")
+    mgr.recorder.record(*_cluster(scene, graph, 150, seed=31))
+    assert mgr.maybe_adapt() is True and mgr.validation_failures == 0
+    assert mgr.device_bytes() <= budget and mgr.engine.artifact.layout.quantized
+    s, t = _cluster(scene, graph, 200, seed=7)
+    q = PathServer(mgr.engine, batch_size=64)._dispatch(s, t, True)
+    f32 = PathServer(CudaEngine(pack_bucketed(mgr.host_index, device=card)),
+                     batch_size=64)._dispatch(s, t, True)
+    for a, b in zip(q[1:], f32[1:]):
+        np.testing.assert_array_equal(a, b)
+    qerr = float(mgr.engine.artifact.qerr)
+    fin = np.isfinite(f32[0])
+    np.testing.assert_array_equal(np.isfinite(q[0]), fin)
+    assert np.all(np.abs(q[0][fin] - f32[0][fin]) <= 2 * qerr + 1e-4)
+
+
+def test_two_threads_load_a_cold_kernel_once_on_card(card, tmp_path,
+                                                     monkeypatch):
+    """Two threads that meet ``label_join`` first on a cold build cache
+    make one nvcc build and one load between them, and both launch."""
+    import threading
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "BUILDS", {})
+    monkeypatch.setattr(build, "LOADS", {})
+    rng = np.random.default_rng(3)
+    rows = [torch.from_numpy(a).to(card) for a in (
+        np.sort(rng.integers(0, 9, (4, 128)), axis=1).astype(np.int32),
+        rng.uniform(0, 9, (4, 128)).astype(np.float32),
+        np.sort(rng.integers(0, 9, (4, 128)), axis=1).astype(np.int32),
+        rng.uniform(0, 9, (4, 128)).astype(np.float32))]
+    start = threading.Barrier(2)
+    out, errors = [], []
+
+    def first_use():
+        try:
+            start.wait()
+            out.append(label_join_rowmin(*rows))
+            torch.cuda.synchronize()
+        except BaseException as e:          # pragma: no cover
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    assert not errors, errors
+    assert build.BUILDS == {"label_join": 1}
+    assert build.LOADS == {"label_join": 1}
+    want = ref.label_join_rowmin_ref(*rows)
+    assert all(torch.equal(o, want) for o in out) and len(out) == 2

@@ -223,3 +223,42 @@ def test_build_compiles_once_keyed_by_source(tmp_path, monkeypatch):
         build.build(("a", "b"))
     assert not build.library_path("b").exists()
     assert not list((tmp_path / "out").glob("*.tmp"))
+
+
+def test_load_builds_and_loads_once_across_threads(tmp_path, monkeypatch):
+    """Two threads that meet a kernel first at the same moment (the
+    adaptive manager's build thread beside a serving thread) make one nvcc
+    build and one load between them, and get the same library."""
+    import threading
+
+    from repro_torch.kernels import build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.replace("cp ", "sleep 0.3; cp "))
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "BUILDS", {})
+    monkeypatch.setattr(build, "LOADS", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    start = threading.Barrier(2)
+    got = []
+
+    def first_use():
+        start.wait()
+        got.append(build.load("a"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert len(got) == 2 and got[0] is got[1]
+    assert build.BUILDS == {"a": 1} and build.LOADS == {"a": 1}
+    assert build.library_path("a").read_text() == "// a\n"
+    assert not list((tmp_path / "out").glob("*.tmp"))
