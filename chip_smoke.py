@@ -12,7 +12,7 @@ point location at a cell size that is not a power of two (``check: cell
 3.0``: rooms-S seed 1 at cell 3.0, points on and one float32 ulp below
 every cell boundary, located on the card where the host routing and the
 residual table locate them, served within 1e-4 of the float64 oracle),
-then drives seven serving paths, each with the launch counts set to 0 just
+then drives eight serving paths, each with the launch counts set to 0 just
 before it and read just after, and each with a ``warmup:`` line (nvcc
 builds, ctypes loads and cold shape keys met on live traffic after
 ``warmup(paths=True)``, all required to be 0, and the allocator's segment
@@ -60,7 +60,26 @@ count before and after):
   the batcher, the synchronous path bit for bit.  One line per round
   (phase, us/query, device bytes, generation, and on a swap the decision,
   drift and the host seconds of each build stage) and the join cost of the
-  adapted against the uniform-score generation.
+  adapted against the uniform-score generation;
+* the sharded path (DESIGN.md §9): the main path's index planned onto four
+  region shards (``ShardPlanner(4).build``), all on the one card, served by
+  a ``ShardedQueryEngine`` on the CUDA kernels behind
+  ``PathServer(batch_size=256)``: per-shard lines (device, regions, widths,
+  bytes, edges kept by the clip, grid), device bytes equal to
+  ``ShardedIndex.device_bytes()``, the per-shard estimate and the
+  reference's CPU sizing (2423808 in all), imbalance at most 1.15, answers
+  equal to the single-device dense path's and the sharded twin engine's bit
+  for bit, the routing line (keys, batches, slot occupancy, cross-shard
+  share, covis participants per batch), the batcher against sync, spread
+  and profile; then answers only: the bf16/u16 shards (bytes, 2·qerr,
+  winners after the rescue, quantized wire rows), the ``edge_grid=True``
+  shards (bit-equal to dense, ``segvis_tiles`` launched) and the
+  reference's sharded acceptance configuration (rooms-S seed 1 at 0.3, 1000
+  queries, then an ``IndexManager(num_shards=4)`` swapping under batcher
+  load: answers bit-stable, one generation on all four new shards, no shard
+  over its cap, the retired shards' memory freed).  The sharded path's own
+  operands (a clipped fold, a covis batch, a home-shard join, a
+  clipped-grid tile chunk) join the kernel-versus-twin checks.
 
 Before the adaptive path, the f16 layout is checked once (answers only),
 and a fresh rooms-M build is merged to 0.6x the f32 artifact's device
@@ -126,6 +145,19 @@ ADAPT_BUDGET, ADAPT_ROUNDS, ADAPT_SEEDS = 0.2, 8, (101, 202)
 ADAPT_LOAD_ROUND = ADAPT_ROUNDS // 2
 # allocator granularity: every CUDA caching-allocator block is a multiple
 ALLOC_ROUND = 512
+# the sharded path (DESIGN.md §9): the main path's index over four region
+# shards, all on the one card; per-shard device bytes as the reference's
+# packer sizes these artifacts on the CPU (f32, edge_grid=True, bf16/u16)
+SHARDS, SHARD_TOL = 4, 1.15
+SHARD_BYTES = (584720, 577200, 577176, 684712)
+SHARD_BYTES_GRID = (589860, 582340, 582316, 689852)
+SHARD_BYTES_BF16 = (183232, 184336, 184288, 219664)
+# the reference's sharded acceptance configuration: rooms-S seed 1 at
+# budget 0.3, 1000 uniform queries (seed 42), batch 64, and an
+# IndexManager at 0.5x the bucketed artifact plus the sharding overhead
+# swapping under load (Cluster-2 traffic, seed 31)
+ACCEPT_SEED, ACCEPT_BUDGET, ACCEPT_QUERIES, ACCEPT_BATCH = 1, 0.3, 1000, 64
+ACCEPT_BYTES = (160744, 160728, 160744, 191536)
 
 
 def card_line() -> str:
@@ -843,6 +875,22 @@ def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
           f"{1e3 * eng.rescue_seconds:.3f} ms")
 
 
+def serve_async(srv, s, t, chunks, argmin: bool = False):
+    """Submit ``chunks`` of (s, t) to the batcher, flush and drain; returns
+    the answers (distances, or the 5 argmin outputs) in submit order and
+    the wall seconds through ``drain``."""
+    t0 = time.perf_counter()
+    tickets = [srv.submit(s[a:b], t[a:b], want_argmin=argmin)
+               for a, b in chunks]
+    srv.flush()
+    require(srv.drain(timeout=120), "async drain timed out")
+    wall = time.perf_counter() - t0
+    outs = [tk.result(timeout=1) for tk in tickets]
+    cols = [np.concatenate(c) for c in zip(*outs)] if argmin \
+        else [np.concatenate(outs)]
+    return cols, wall
+
+
 def async_path(bx, dense_got, s, t, kernels, twins, by_path: dict) -> None:
     """The dense path through the continuous batcher: the same queries
     submitted as one-query trickles and as bursts, flushed and drained.
@@ -868,16 +916,7 @@ def async_path(bx, dense_got, s, t, kernels, twins, by_path: dict) -> None:
     burst = [(i, min(n, i + ASYNC_BURST)) for i in range(0, n, ASYNC_BURST)]
 
     def serve(chunks, argmin=False):
-        t0 = time.perf_counter()
-        tickets = [srv.submit(s[a:b], t[a:b], want_argmin=argmin)
-                   for a, b in chunks]
-        srv.flush()
-        require(srv.drain(timeout=120), "async drain timed out")
-        wall = time.perf_counter() - t0
-        outs = [tk.result(timeout=1) for tk in tickets]
-        cols = [np.concatenate(c) for c in zip(*outs)] if argmin \
-            else [np.concatenate(outs)]
-        return cols, wall
+        return serve_async(srv, s, t, chunks, argmin)
 
     walls = {}
     for name, chunks in (("trickle", trickle), ("burst", burst)):
@@ -1225,6 +1264,421 @@ def load_round(srv, mgr, s, t, truth, live_artifact, after_live, dev):
     return prev, m0, 1e6 * wall / queries, probe_pre
 
 
+def shard_bytes_estimate(index, sh, edge_grid=None) -> list:
+    """Each shard's device bytes from the plan, without reading a device
+    tensor: the plan's predicted slab bytes, the full-grid mapper, the
+    region tables, the clipped edge tensors, the vertex table of a
+    quantized layout and the grid its clip would attach."""
+    from repro_torch.core.edgegrid import ell_bytes
+    from repro_torch.core.packed import (_grid_plan, _pack_edges,
+                                         dtype_bytes)
+
+    lb = dtype_bytes(sh.shards[0].layout)
+    out = []
+    for k, mask in enumerate(sh.edge_masks):
+        ea, eb, _ = _pack_edges(index, 128, mask=mask)
+        plan = _grid_plan(ea, eb, int(mask.sum()), index.scene, edge_grid)
+        grid = 0 if plan is None else ell_bytes(plan[0], plan[1], plan[3])
+        regions = int((sh.plan.assignment == k).sum())
+        out.append(int(sh.plan.slab_bytes[k]) + index.mapper.size * 4
+                   + 2 * regions * 4 + 3 * ea.shape[0] * 2 * 4
+                   + index.graph.num_nodes * lb.per_vertex + grid)
+    return out
+
+
+def describe_shards(label: str, sh) -> None:
+    """One line per shard: device, regions, widths, bytes, clip, grid."""
+    for k, (bx, b) in enumerate(zip(sh.shards, sh.per_shard_bytes())):
+        m = sh.edge_masks[k]
+        g = bx.grid
+        print(f"shard: {label} {k}: device {bx.device}, {bx.num_regions} "
+              f"regions, widths {bx.widths}, {b} device bytes, edges kept "
+              f"{int(m.sum())} of {len(m)} (E = {bx.num_edges}), "
+              + ("dense" if g is None else
+                 f"edge grid {g.gnx}x{g.gny}, S = {g.tile_slots}"))
+
+
+def sharded_operands(sh, gsh, s, t, B: int) -> dict:
+    """The sharded path's own kernel operands, at its widest join width:
+    the first B queries of the busiest cross-shard routing key there (zero-
+    padded to B, as PathServer pads), staged as the router stages them.
+    ``fold``: the s side's fold segments against its home shard's clipped
+    edges (N = B*W); ``covis``: the batch's s->t segments against the last
+    covis participant's clipped edges (N = B); ``join``: the masked label
+    rows of both sides on the home shard; ``tiles``: the first TILE_CHUNK
+    fold segments of the same group on the ``edge_grid=True`` shards, as
+    six [N, S] planes of the home shard's clipped grid (and their dense
+    operands)."""
+    import torch
+
+    from repro_torch.core.edgegrid import gather_edge_tiles
+    from repro_torch.core.packed import _gather_bucketed, _width_bucket
+    from repro_torch.serving.shard_router import ShardRouter
+
+    router = ShardRouter(sh)
+    keys = router.route_keys(s, t)
+    W = int(router.width_classes[-1])
+    cand = [k for k in np.unique(keys) if router.key_width(k) == W]
+    cross = [k for k in cand if router.decode_key(k)[0]
+             != router.decode_key(k)[1]] or cand
+    key = max(cross, key=lambda k: int((keys == k).sum()))
+    sel = np.nonzero(keys == key)[0][:B]
+    sb = np.zeros((B, 2), np.float32)
+    tb = np.zeros((B, 2), np.float32)
+    sb[:len(sel)], tb[:len(sel)] = s[sel], t[sel]
+    out = {"key": router.decode_key(key)}
+    for name, art in (("dense", sh), ("grid", gsh)):
+        r = router if art is sh else ShardRouter(art)
+        st = r.stage(sb, tb, key)
+        bx = art.shards[st.i]
+        labels = _gather_bucketed(bx, st.loc_s, _width_bucket(bx, W), W)
+        p = torch.repeat_interleave(st.s_dev, W, dim=0)
+        q = labels[1].reshape(-1, 2).contiguous()
+        edges = (bx.edges_a, bx.edges_b, bx.edges_c)
+        if art is sh:
+            k = st.parts[-1]
+            dev = router.devices[k]
+            out["fold"] = (p, q, *edges)
+            out["fold_kept"] = int(sh.edge_masks[st.i].sum())
+            out["covis"] = (st.s_on[dev], st.t_on[dev], sh.shards[k].edges_a,
+                            sh.shards[k].edges_b, sh.shards[k].edges_c)
+            out["covis_shard"] = k
+            r.fold(st)
+            out["join"] = (st.masked_s[0].contiguous(),
+                           st.masked_s[1].contiguous(),
+                           st.masked_t[0].contiguous(),
+                           st.masked_t[1].contiguous())
+        else:
+            p, q = p[:TILE_CHUNK], q[:TILE_CHUNK]
+            out["tiles"] = (p, q, *gather_edge_tiles(bx.grid, *edges, p, q))
+            out["tiles_dense"] = (p, q, *edges)
+    return out
+
+
+def routing_line(label: str, eng, s, t) -> None:
+    """Host arithmetic on the routing of one pass (as PathServer cuts it):
+    routing keys used, batches and slot occupancy, the cross-shard share
+    and the covis participants per batch."""
+    router = eng.router
+    keys = eng.buckets_of(s, t)
+    parts, batches = [], 0
+    for k in np.unique(keys):
+        idx = np.nonzero(keys == k)[0]
+        for lo in range(0, len(idx), BATCH):
+            sel = idx[lo:lo + BATCH]
+            parts.append(len(router.covis_shards(s[sel], t[sel])
+                             or [router.decode_key(k)[0]]))
+            batches += 1
+    pairs = np.array([router.decode_key(k)[:2] for k in keys])
+    cross = float(np.mean(pairs[:, 0] != pairs[:, 1]))
+    hist = np.bincount(parts, minlength=SHARDS + 1)[1:]
+    print(f"routing: {label}: {len(s)} queries on {len(np.unique(keys))} of "
+          f"{eng.num_buckets} routing keys, {batches} batches of {BATCH} a "
+          f"pass, slot occupancy {len(s) / (batches * BATCH):.4f}; "
+          f"cross-shard share {cross:.4f}; covis participants per batch "
+          f"min {min(parts)} mean {float(np.mean(parts)):.3f} max "
+          f"{max(parts)} (batches with 1..{SHARDS}: {hist.tolist()})")
+
+
+def sharded_path(index, bx, sh, gsh, dense_got, s, t, qs, kernels, twins,
+                 dev, by_path: dict) -> None:
+    """The main path's index over SHARDS region shards on the card
+    (``ShardPlanner(4).build``), served by a ``ShardedQueryEngine`` on the
+    CUDA kernels behind ``PathServer(batch_size=256)``: per-shard lines,
+    device bytes (the reference's sizing and the per-shard estimate),
+    imbalance, the served answers against the single-device dense path and
+    the sharded twin engine bit for bit and the float64 oracle, the
+    routing line, the batcher (trickles, bursts) against sync, spread and
+    profile.  Then answers-only: the bf16/u16 shards and the
+    ``edge_grid=True`` shards."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.packed import slab_layout
+    from repro_torch.serving import PathServer
+    from repro_torch.sharding import ShardedQueryEngine, ShardPlanner
+
+    label = f"{MAP} sharded"
+    describe_shards(label, sh)
+    per = sh.per_shard_bytes()
+    est = shard_bytes_estimate(index, sh)
+    print(f"bytes: {label}: {sh.device_bytes()} device bytes over {SHARDS} "
+          f"shards {per} (ShardedIndex.device_bytes(); per-shard estimate "
+          f"{est}), {sh.device_bytes() / bx.device_bytes():.4f}x the "
+          f"unsharded artifact's {bx.device_bytes()}; imbalance "
+          f"{sh.imbalance():.4f} after {sh.plan.moves} rebalance moves; "
+          f"regions {[b.num_regions for b in sh.shards]}")
+    require(sum(per) == sh.device_bytes() and tuple(per) == SHARD_BYTES
+            and per == est,
+            f"sharded bytes {per} != the reference's {SHARD_BYTES} or the "
+            f"estimate {est}")
+    require(sh.imbalance() <= SHARD_TOL, f"imbalance {sh.imbalance()}")
+
+    print(f"path: {label}")
+    eng = ShardedQueryEngine(sh, backend="cuda")
+    srv = PathServer(eng, batch_size=BATCH)
+    run = drive(srv, s, t, index, kernels, twins, label)
+    by_path[label] = run["launches"]
+    require(run["launches"]["segvis"] > 0
+            and run["launches"]["label_join_rowmin"] > 0
+            and run["launches"]["segvis_tiles"] == 0,
+            f"sharded path launches: {run['launches']}")
+    twin = PathServer(ShardedQueryEngine(sh, backend="torch"),
+                      batch_size=BATCH)
+    got = check_answers(srv, twin, run, s, t, index, qs)
+    require(np.array_equal(run["d"], dense_got[0]),
+            "sharded d != the single-device dense path's")
+    for name, a, b in zip(ANSWERS, got, dense_got):
+        require(np.array_equal(a, b),
+                f"sharded vs single-device dense output {name}")
+    print(f"check: {label} (kernels) == the single-device dense CudaEngine "
+          f"and == the sharded twin engine on all 5 outputs ({len(s)} "
+          f"queries)")
+    routing_line(label, eng, s, t)
+    print("shard stats: " + "; ".join(
+        f"{st.shard}: batches {st.batches}, slots {st.slots}, gathers_out "
+        f"{st.gathers_out}, covis_assists {st.covis_assists}, occupancy "
+        f"{st.occupancy:.4f}" for st in srv.stats.per_shard))
+
+    # the batcher: one-query trickles, bursts, burst argmin
+    n = len(s)
+    trickle = [(i, i + 1) for i in range(n)]
+    burst = [(i, min(n, i + ASYNC_BURST)) for i in range(0, n, ASYNC_BURST)]
+    walls = {}
+    for name, chunks in (("trickle", trickle), ("burst", burst)):
+        (d,), walls[name] = serve_async(srv, s, t, chunks)
+        require(np.array_equal(d, run["d"]),
+                f"sharded async {name} distances != sync")
+    agot, walls["burst argmin"] = serve_async(srv, s, t, burst, argmin=True)
+    for name, a, b in zip(ANSWERS, agot, got):
+        require(np.array_equal(a, b), f"sharded async argmin {name} != sync")
+    srv.stop_async()
+    require(len(srv.stats.per_shard) == SHARDS, "per_shard rows missing")
+    print(f"check: {label} async == sync on all 5 outputs (trickle and burst "
+          f"distances, burst argmin); us/query through drain: " + ", ".join(
+              f"{k} {1e6 * w / n:.3f}" for k, w in walls.items()))
+    spread_and_profile(srv, s, t)
+
+    # bf16/u16 shards, answers only
+    for k in kernels.values():
+        k.launches = 0
+    lay = slab_layout("bf16")
+    qsh = ShardPlanner(SHARDS, layout=lay).build(index, device=dev)
+    describe_shards(f"{label} bf16", qsh)
+    qper, qest = qsh.per_shard_bytes(), shard_bytes_estimate(index, qsh)
+    require(tuple(qper) == SHARD_BYTES_BF16 and qper == qest,
+            f"bf16 shard bytes {qper} != {SHARD_BYTES_BF16} or the "
+            f"estimate {qest}")
+    qeng = ShardedQueryEngine(qsh, backend="cuda")
+    qsrv = PathServer(qeng, batch_size=BATCH)
+    qsrv.warmup(paths=True)
+    qd = qsrv.query(s, t)
+    qgot = qsrv._dispatch(s, t, want_argmin=True)
+    qerr = max(float(b.qerr) for b in qsh.shards)
+    require(within_qerr(qd, got[0], qerr) and within_qerr(qgot[0], got[0],
+                                                          qerr),
+            "sharded bf16 distances beyond 2·qerr of the f32 sharded path")
+    for name, a, b in zip(ANSWERS[1:], qgot[1:], got[1:]):
+        require(np.array_equal(a, b), f"sharded bf16 winner {name} != f32")
+    wire = sum(c.value for c in obs.REGISTRY.find(
+        "router_wire_rows_total", router=qeng.router._obs_labels["router"],
+        wire="quant"))
+    require(wire > 0, "the quantized wire shipped no rows")
+    by_path[f"{label} bf16"] = {n_: k.launches for n_, k in kernels.items()}
+    fin = np.isfinite(got[0])
+    print(f"check: {label} bf16/u16 ({qsh.device_bytes()} device bytes, "
+          f"{qper} = the reference's and the estimate; qerr {qerr:.9g}): max "
+          f"|d - d_f32| {float(np.abs(qd[fin] - got[0][fin]).max()):.6e} "
+          f"(2·qerr {2 * qerr:.6e}); covis, via_s, hub, via_t equal the f32 "
+          f"sharded path's bit for bit; rescue {qeng.rescue_batches} "
+          f"batches, {qeng.rescue_rows} rows; quantized wire rows "
+          f"{int(wire)}")
+
+    # edge_grid=True shards: segvis_tiles on the clipped grids
+    for k in kernels.values():
+        k.launches = 0
+    describe_shards(f"{label} grid", gsh)
+    gper = gsh.per_shard_bytes()
+    require(tuple(gper) == SHARD_BYTES_GRID
+            and gper == shard_bytes_estimate(index, gsh, edge_grid=True)
+            and all(b.grid is not None for b in gsh.shards),
+            f"grid shards {gper} != {SHARD_BYTES_GRID}, or one lacks a grid")
+    gsrv = PathServer(ShardedQueryEngine(gsh, backend="cuda"),
+                      batch_size=BATCH)
+    gsrv.warmup(paths=True)
+    require(np.array_equal(gsrv.query(s, t), dense_got[0]),
+            "sharded grid d != dense d")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gsrv.query(s, t)
+    torch.cuda.synchronize()
+    grid_us = 1e6 * (time.perf_counter() - t0) / len(s)
+    ggot = gsrv._dispatch(s, t, want_argmin=True)
+    for name, a, b in zip(ANSWERS, ggot, dense_got):
+        require(np.array_equal(a, b), f"sharded grid vs dense output {name}")
+    glaunch = {n_: k.launches for n_, k in kernels.items()}
+    by_path[f"{label} grid"] = glaunch
+    require(glaunch["segvis_tiles"] > 0 and glaunch["segvis"] == 0,
+            f"sharded grid launches: {glaunch}")
+    print(f"check: {label} edge_grid=True ({gsh.device_bytes()} device "
+          f"bytes, {gper}): == the dense path on all 5 outputs; second pass "
+          f"{grid_us:.3f} us/query; launches: "
+          + ", ".join(f"{k} {v}" for k, v in glaunch.items()))
+    torch.cuda.synchronize()
+
+
+def shard_tensors(sh) -> dict:
+    """{storage pointer: allocator bytes} of every device tensor of a
+    sharded artifact (slabs, tables, edges, grids)."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    for bx in sh.shards:
+        ts = []
+        for f in dataclasses.fields(bx):
+            v = getattr(bx, f.name)
+            ts += [x for x in (v if isinstance(v, tuple) else (v,))
+                   if isinstance(x, torch.Tensor)]
+        if bx.grid is not None:
+            ts += [bx.grid.cell_ids, bx.grid.cell_len]
+        for x in ts:
+            st = x.untyped_storage()
+            out[st.data_ptr()] = -(-st.nbytes() // ALLOC_ROUND) * ALLOC_ROUND
+    return out
+
+
+def sharded_acceptance(kernels, twins, dev, by_path: dict) -> None:
+    """The reference's sharded acceptance configuration on the card:
+    rooms-S seed 1 at budget 0.3 over 4 shards, 1000 uniform queries equal
+    to the single-device bucketed answers bit for bit; then an
+    ``IndexManager(num_shards=4, backend="cuda")`` at 0.5x the bucketed
+    artifact plus the sharding overhead, batch 64, whose swap builds on
+    its thread while the batcher serves: answers bit-stable throughout, one
+    generation published across all four shards, no shard over its cap,
+    the retired shards' memory freed."""
+    import gc
+    import weakref
+
+    import torch
+
+    from repro_torch.core import (build_ehl, build_hub_labels,
+                                  build_visgraph, bucketed_device_bytes,
+                                  cluster_queries, compress_to_fraction,
+                                  make_map, pack_bucketed,
+                                  query_batch_bucketed, uniform_queries)
+    from repro_torch.indexing import IndexManager
+    from repro_torch.serving import PathServer
+    from repro_torch.sharding import (ShardedQueryEngine, ShardPlanner,
+                                      sharded_overhead_bytes)
+
+    label = f"{GRID_MAP} sharded acceptance"
+    for k in kernels.values():
+        k.launches = 0
+    for f in twins:
+        f.calls = 0
+    scene = make_map(GRID_MAP, seed=ACCEPT_SEED)
+    graph = build_visgraph(scene)
+    hl = build_hub_labels(graph)
+    idx = build_ehl(scene, CELL, graph=graph, hl=hl)
+    compress_to_fraction(idx, ACCEPT_BUDGET)
+    bx = pack_bucketed(idx, device=dev)
+    sh = ShardPlanner(SHARDS).build(idx, device=dev)
+    describe_shards(label, sh)
+    require(tuple(sh.per_shard_bytes()) == ACCEPT_BYTES,
+            f"acceptance shards {sh.per_shard_bytes()} != {ACCEPT_BYTES}")
+    require(max(sh.per_shard_bytes()) <= SHARD_TOL * sh.device_bytes()
+            / SHARDS, "acceptance shards over 1.15x their fair share")
+    qs = uniform_queries(scene, graph, ACCEPT_QUERIES, seed=42,
+                         require_path=False)
+    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    ref = query_batch_bucketed(bx, s, t, use_kernels=True)
+    out = ShardedQueryEngine(sh, backend="cuda").query(s, t)
+    require(np.array_equal(ref, out), "acceptance: sharded != single-device")
+
+    idx2 = build_ehl(scene, CELL, graph=graph, hl=hl)
+    budget = int(bucketed_device_bytes(idx2) * 0.5) \
+        + sharded_overhead_bytes(idx2, SHARDS)
+    mgr = IndexManager(idx2, budget, backend="cuda", device=dev,
+                       batch_size=ACCEPT_BATCH, min_queries=60,
+                       replan_threshold=0.10, min_dwell=0, probe_n=32,
+                       num_shards=SHARDS, seed=13, validate_tol=0.0)
+    cap = SHARD_TOL * budget / SHARDS
+    require(max(mgr.engine.per_shard_bytes()) <= cap,
+            "acceptance: generation 0 has a shard over its cap")
+    srv = PathServer(mgr.engine, batch_size=ACCEPT_BATCH,
+                     recorder=mgr.recorder)
+    srv.warmup()
+    cq = cluster_queries(scene, graph, 2, 200, seed=31, require_path=False)
+    cs, ct = cq.s.astype(np.float32), cq.t.astype(np.float32)
+    d0 = srv.query(cs, ct)
+    old = mgr.engine.artifact
+    old_ptrs, old_ref = shard_tensors(old), weakref.ref(old.shards[0].mapper)
+    old_shards = [id(b) for b in old.shards]
+    del old
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    mgr.maybe_adapt(block=False)
+    require(mgr.building, "acceptance: the manager started no build")
+    passes = 0
+    chunks = [(i, min(len(cs), i + 25)) for i in range(0, len(cs), 25)]
+    while True:
+        (d,), _ = serve_async(srv, cs, ct, chunks)
+        require(np.array_equal(d, d0),
+                "acceptance: answers moved while the swap built")
+        passes += 1
+        if not mgr.building:
+            break
+    mgr.join(timeout=300)
+    srv.stop_async()
+    d1 = srv.query(cs, ct)
+    require(np.array_equal(d1, d0), "acceptance: answers moved across swap")
+    new = mgr.engine.artifact
+    require(mgr.generation == 1 and mgr.validation_failures == 0
+            and srv.stats.generation == 1,
+            f"acceptance: generation {mgr.generation}, failures "
+            f"{mgr.validation_failures}, served {srv.stats.generation}")
+    require(not any(id(b) in old_shards for b in new.shards),
+            "acceptance: the new generation reuses an old shard object")
+    per = mgr.engine.per_shard_bytes()
+    require(max(per) <= cap, f"acceptance: shard bytes {per} over the cap "
+            f"{cap:.0f}")
+    new_ptrs = shard_tensors(new)
+    aliased = old_ptrs.keys() & new_ptrs.keys()
+    want = sum(v for p, v in old_ptrs.items() if p not in aliased)
+    gc.collect()
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated(dev)
+    fall = m0 + sum(v for p, v in new_ptrs.items() if p not in aliased) - m1
+    require(old_ref() is None, "acceptance: the retired shards are alive")
+    require(fall >= want, f"acceptance: memory fell {fall} bytes, less than "
+            f"the retired shards' {want} unaliased")
+    launches = {n_: k.launches for n_, k in kernels.items()}
+    by_path[label] = launches
+    require(launches["label_join_rowmin"] > 0
+            and all(f.calls == 0 for f in twins),
+            f"acceptance launches {launches}, twin calls")
+    st = mgr.stats()
+    rec = mgr.history[-1]
+    stages = mgr.telemetry.spans.traces("build")[-1].stages
+    print(f"SWAP[{rec.kind}] {label}: drift {rec.drift:.6f}, regions "
+          f"{rec.regions}, host seconds: build {rec.build_s:.4f}, repack "
+          f"{stages['repack']:.4f}, validate {rec.validate_s:.4f}, stage "
+          f"{stages['stage']:.4f}, swap {stages['swap']:.6f}")
+    print(f"check: {label}: {ACCEPT_QUERIES} uniform queries == the "
+          f"single-device bucketed answers bit for bit; manager budget "
+          f"{budget} (0.5x bucketed + overhead), generation 0 shards "
+          f"within the cap {cap:.0f}; swap built on the manager's thread "
+          f"over {passes} batcher passes of {len(cs)} Cluster-2 queries, "
+          f"answers bit-stable throughout and after; generation "
+          f"{mgr.generation} on all {SHARDS} new shards {per}, "
+          f"{len(aliased)} tensors aliased; retired shards freed ({fall} "
+          f"bytes fell, {want} unaliased); stats {st}; launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+
+
 def main() -> None:
     import torch
 
@@ -1242,6 +1696,7 @@ def main() -> None:
     from repro_torch.kernels.segvis import block_threads, launch_shape, segvis
     from repro_torch.kernels.segvis_tiles import segvis_tiles
     from repro_torch.serving import CudaEngine, PathServer, TorchEngine
+    from repro_torch.sharding import ShardPlanner
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1296,6 +1751,12 @@ def main() -> None:
                                       sbx.grid.tile_slots) == (8, 8, 4, 96),
             "the auto policy did not attach the 8x8, M = 4, S = 96 grid on "
             "rooms-S seed 0")
+    t0 = time.perf_counter()
+    sh = ShardPlanner(SHARDS).build(index, device=dev)
+    gsh = ShardPlanner(SHARDS).build(index, edge_grid=True, device=dev)
+    print(f"index: {MAP} over {SHARDS} region shards on {sh.devices}: "
+          f"planned and packed twice (edge_grid auto and True) in "
+          f"{time.perf_counter() - t0:.3f} s")
     B = BATCH
     E = bx.num_edges
 
@@ -1390,6 +1851,37 @@ def main() -> None:
           f"(S, N) in {sorted(tile_args)}; segvis_tiles == twin on "
           f"{len(cases)} contact cases, (N, S) in "
           f"{[tuple(a[2].shape) for a in cases]}")
+    # the sharded path's own operands: a clipped fold, a covis batch on a
+    # participant's clip, a home-shard join, a clipped-grid tile chunk
+    shard_ops = sharded_operands(sh, gsh, s, t, B)
+    for what, args in (("fold", shard_ops["fold"]),
+                       ("covis", shard_ops["covis"])):
+        got, want = segvis(*args), ref.segvis_ref(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"segvis != twin on the sharded path's {what}")
+        seg_err = max(seg_err, max_abs_err(got, want))
+    got = label_join_rowmin(*shard_ops["join"])
+    want = ref.label_join_rowmin_ref(*shard_ops["join"])
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "rowmin != twin on the sharded join")
+    join_err = max(join_err, max_abs_err(got, want))
+    got = segvis_tiles(*shard_ops["tiles"])
+    want = ref.segvis_tiles_ref(*shard_ops["tiles"])
+    torch.cuda.synchronize()
+    require(torch.equal(got, want)
+            and torch.equal(got, ref.segvis_ref(*shard_ops["tiles_dense"])),
+            "segvis_tiles != twins on the sharded clipped-grid chunk")
+    tile_err = max(tile_err, max_abs_err(got, want))
+    i, j, w = shard_ops["key"]
+    print(f"check: segvis (fold N={shard_ops['fold'][0].shape[0]} on shard "
+          f"{i}'s clipped edges, {shard_ops['fold_kept']} kept, padded to "
+          f"{shard_ops['fold'][2].shape[0]}; covis "
+          f"N={B} on shard {shard_ops['covis_shard']}'s clip), "
+          f"label_join_rowmin (B={B}, L={w}, home shard {i}, t side from "
+          f"shard {j}) and segvis_tiles (N={TILE_CHUNK}, S="
+          f"{shard_ops['tiles'][2].shape[1]} on shard {i}'s clipped grid) "
+          f"== twins on the sharded path's own operands")
 
     # -- 3b. point location at a cell size that is not a power of two --------
     cell3_check(dev)
@@ -1463,6 +1955,12 @@ def main() -> None:
 
     # -- 10b. the adaptive index lifecycle: capture, replan, hot swap ---------
     adaptive_path(scene, graph, index, kernels, twins, dev, by_path)
+
+    # -- 10c. region sharding: four shards on the card, then the reference's
+    # sharded acceptance configuration with a swap under load -------------
+    sharded_path(index, bx, sh, gsh, dense_got, s, t, qs, kernels, twins,
+                 dev, by_path)
+    sharded_acceptance(kernels, twins, dev, by_path)
 
     # -- 11. kernel times beside the twins' and the bound ---------------------
     def bound(nbytes: float, ops: float) -> tuple[float, str]:

@@ -35,8 +35,23 @@ failed probe validation, probe answers equal across every swap boundary
 (within the quantization bounds with ``--quantize``) and every artifact
 within the budget, and with ``--serve-async`` ends with the async check on
 the final generation.  ``--backend cuda`` (and the default ``--device
-cuda``) exits non-zero without a card.  Sharding and the telemetry export
-come with later slices of the port.
+cuda``) exits non-zero without a card.  The telemetry export comes with a
+later slice of the port.
+
+``--shards N`` serves through the region-sharded engine (DESIGN.md §9):
+the bucketed slabs are planned onto N shards, one per card where the
+machine has N cards (``launch.mesh.make_serving_mesh``), else round-robin
+onto the cards there are (all on ``cuda:0`` on a one-card machine; on the
+CPU with ``--device cpu``); batches route by (shard, shard, width), and
+the answers must equal the single-device engine's bit for bit and every
+shard must stay within ``--shard-tol`` times its fair share of the bytes:
+
+    python examples/pathfind_serve_torch.py --shards 4 --serve-async
+    PYTHONPATH=src python examples/pathfind_serve_torch.py --device cpu \
+        --shards 4 --map rooms-S --queries 96 --batch 32 --budget 0.3
+
+``--shards`` combines with ``--adaptive``: each swap republishes every
+shard under one generation.
 """
 
 import argparse
@@ -55,8 +70,10 @@ from repro_torch.core import (build_ehl, build_visgraph,  # noqa: E402
                               pack_index, path_length, plan_buckets,
                               slab_device_bytes, slab_layout, uniform_queries,
                               workload_scores)
-from repro_torch.core.packed import empty_results, resolve_device  # noqa
+from repro_torch.core.packed import (LAYOUT_F32, empty_results,  # noqa
+                                     resolve_device)
 from repro_torch.indexing import IndexManager  # noqa: E402
+from repro_torch.launch.mesh import make_serving_mesh  # noqa: E402
 from repro_torch.serving import (PathServer, expected_join_cost,  # noqa
                                  make_engine)
 
@@ -90,6 +107,13 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", type=int, default=0,
                     help="also unwind N paths from the batched argmin and "
                          "check their lengths")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="serve through N region shards (DESIGN.md §9), "
+                         "one per card or round-robin onto the cards there "
+                         "are")
+    ap.add_argument("--shard-tol", type=float, default=1.15,
+                    help="[shards] per-shard byte cap as a multiple of "
+                         "total/num_shards")
     ap.add_argument("--serve-async", action="store_true",
                     help="also serve through the continuous batcher and "
                          "check it bit for bit against the synchronous path")
@@ -119,8 +143,14 @@ def main(argv=None) -> int:
         print("error: --quantize and --adaptive need a device backend "
               "(torch | cuda)", file=sys.stderr)
         return 2
+    if args.shards > 1 and (backend == "host" or args.layout == "slab"):
+        print("error: --shards needs a device backend (torch | cuda) and "
+              "the bucketed layout", file=sys.stderr)
+        return 2
     if args.adaptive:
         return run_adaptive(args, backend)
+    if args.shards > 1:
+        return run_sharded(args, backend)
 
     scene = make_map(args.map, seed=0)
     graph = build_visgraph(scene)
@@ -231,6 +261,116 @@ def main(argv=None) -> int:
     return 0
 
 
+def serving_mesh_or_none(num_shards: int, device):
+    """One card per shard when the machine has them, else None (the shards
+    round-robin onto the devices of ``device``'s type)."""
+    if resolve_device(device).type != "cuda":
+        return None
+    try:
+        return make_serving_mesh(num_shards)
+    except ValueError as e:
+        print(f"note: {e}")
+        return None
+
+
+def run_sharded(args, backend: str) -> int:
+    """Sharded serving smoke: answers must equal the single-device engine's
+    bit for bit (distances and, with ``--paths``, the argmin path) and
+    every shard must stay within the per-shard byte cap."""
+    from repro_torch.sharding import ShardedQueryEngine, ShardPlanner
+
+    dev = args.device
+    scene = make_map(args.map, seed=0)
+    graph = build_visgraph(scene)
+    index = build_ehl(scene, cell_size=2.0, graph=graph)
+    compress_to_fraction(index, args.budget)
+    mesh = serving_mesh_or_none(args.shards, dev)
+    lay = None if args.quantize == "off" else slab_layout(args.quantize)
+    planner = ShardPlanner(args.shards, tol=args.shard_tol)
+    plan = planner.plan(index)
+    devices = list(mesh) if mesh is not None else dev
+    sharded = planner.build(index, plan, device=devices)
+    eng = ShardedQueryEngine(sharded, mesh=mesh, backend=backend)
+    bx = pack_bucketed(index, device=sharded.devices[0])
+    single = make_engine(bx, backend=backend)
+    eng_q, qerr = None, 0.0
+    if lay is not None:
+        sharded_q = ShardPlanner(args.shards, tol=args.shard_tol,
+                                 layout=lay).build(index, plan,
+                                                   device=devices)
+        eng_q = ShardedQueryEngine(sharded_q, mesh=mesh, backend=backend)
+        qerr = max(float(b.qerr) for b in sharded_q.shards)
+
+    per = sharded.per_shard_bytes()
+    print(f"sharded: {args.shards} shards on "
+          f"{sorted({str(d) for d in sharded.devices})}, plan moves="
+          f"{plan.moves}; bytes: total={sharded.device_bytes() / 1e6:.3f} "
+          f"MB (single-device {bx.device_bytes() / 1e6:.3f} MB), "
+          f"imbalance={sharded.imbalance():.3f}")
+
+    qs = uniform_queries(scene, graph, args.queries, seed=33,
+                         require_path=False)
+    s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
+    srv1 = PathServer(single, batch_size=args.batch)
+    srv1.warmup(paths=args.paths > 0)
+    ref = srv1.query(s, t)
+    srv2 = PathServer(eng, batch_size=args.batch)
+    srv2.warmup(paths=args.paths > 0)
+    out = srv2.query(s, t)
+    print(f"  single-device: {srv1.stats.us_per_query:.1f} us/query; "
+          f"sharded: {srv2.stats.us_per_query:.1f} us/query "
+          f"({srv2.stats.qps:,.0f} qps)")
+    for st in srv2.stats.per_shard:
+        print(f"  shard {st.shard}: [{st.device}] regions={st.regions} "
+              f"bytes={st.device_bytes / 1e6:.3f}MB occ={st.occupancy:.0%} "
+              f"batches={st.batches} slots={st.slots} "
+              f"gathers_out={st.gathers_out} "
+              f"covis_assists={st.covis_assists} "
+              f"{st.us_per_slot:.1f} us/slot")
+
+    failures = []
+    if not np.array_equal(ref, out):
+        failures.append(f"{int((ref != out).sum())} answers differ from the "
+                        "single-device engine")
+    cap = args.shard_tol * sharded.device_bytes() / args.shards
+    if max(per) > cap:
+        failures.append(f"max shard {max(per)}B over the per-shard cap "
+                        f"{cap:.0f}B")
+    if args.paths > 0:
+        n = min(args.paths, len(s))
+        a = srv1._dispatch(s[:n], t[:n], want_argmin=True)
+        b = srv2._dispatch(s[:n], t[:n], want_argmin=True)
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            failures.append("argmin outputs differ from the single-device "
+                            "engine")
+        dp, paths = srv2.query_paths(s[:n], t[:n], host_index=index)
+        err = max((abs(path_length(p) - float(di)) / max(1.0, float(di))
+                   for di, p in zip(dp, paths) if np.isfinite(di)),
+                  default=0.0)
+        print(f"extracted {n} paths via the sharded argmin; max "
+              f"|len(path) - d| / max(1, d) = {err:.2e}")
+        if err > 1e-4:
+            failures.append("path lengths disagree with d")
+    if eng_q is not None:
+        drop = sharded.device_bytes() / sharded_q.device_bytes()
+        print(f"  quantized[{args.quantize}]: "
+              f"{sharded_q.device_bytes() / 1e6:.3f} MB total "
+              f"({drop:.2f}x smaller), qerr={qerr:.2e}")
+        if drop < args.quantize_min_drop:
+            failures.append(f"quantized byte drop {drop:.2f}x < required "
+                            f"{args.quantize_min_drop:.2f}x")
+        failures += check_quantized(eng_q, eng, s, t, qerr)
+    if args.serve_async:
+        failures += check_async(srv2, s, t, "sharded")
+    if failures:
+        print("SHARDED SMOKE FAILED:\n  " + "\n  ".join(failures))
+        return 1
+    print(f"sharded smoke OK: {len(s)} answers bitwise-identical to the "
+          f"single-device engine, per-shard bytes within "
+          f"{args.shard_tol:.2f}x of fair share")
+    return 0
+
+
 def run_adaptive(args, backend: str) -> int:
     """Closed-loop demo: the served workload shifts mid-run and the index
     manager recompresses and hot-swaps to follow it, holding the device-byte
@@ -242,6 +382,14 @@ def run_adaptive(args, backend: str) -> int:
     index = build_ehl(scene, cell_size=2.0, graph=graph)
     lay = None if args.quantize == "off" else slab_layout(args.quantize)
     budget = int(bucketed_device_bytes(index) * args.budget)
+    shard_kw = {}
+    if args.shards > 1:
+        from repro_torch.sharding import sharded_overhead_bytes
+
+        budget += sharded_overhead_bytes(
+            index, args.shards, layout=lay if lay is not None else LAYOUT_F32)
+        shard_kw = dict(num_shards=args.shards, shard_tol=args.shard_tol,
+                        mesh=serving_mesh_or_none(args.shards, dev))
     # validate_tol=0: a candidate goes live only if its probe answers equal
     # the live artifact's bit for bit (quantized layouts widen it by the two
     # generations' quantization bounds), the criterion checked below
@@ -249,7 +397,7 @@ def run_adaptive(args, backend: str) -> int:
                        batch_size=args.batch,
                        min_queries=max(64, args.queries // 4),
                        replan_threshold=0.10, min_dwell=1, probe_n=64,
-                       seed=17, validate_tol=0.0, layout=lay)
+                       seed=17, validate_tol=0.0, layout=lay, **shard_kw)
     k = max(2, args.clusters)
     phases = [cluster_queries(scene, graph, k, args.queries, seed=seed,
                               require_path=False) for seed in (101, 202)]

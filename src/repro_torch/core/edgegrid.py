@@ -254,14 +254,19 @@ def plan_grid_bytes(ea: np.ndarray, eb: np.ndarray, num_real: int,
 def build_edge_grid(ea: np.ndarray, eb: np.ndarray, num_real: int,
                     width: float, height: float, sentinel: int,
                     target_cells: int | None = None,
-                    device="cpu") -> EdgeGrid:
+                    device="cuda") -> EdgeGrid:
     """Rasterize packed edge tensors into an :class:`EdgeGrid` on ``device``.
 
     ``ea``/``eb`` are the *packed* [Ep, 2] arrays (real edges first,
     degenerate padding after); ``sentinel`` is the id of a degenerate
     padding slot — checked here, because every unused ELL slot must be
-    provably non-blocking for every query segment.
+    provably non-blocking for every query segment.  ``device`` defaults to
+    the card and raises without one, as every entry point of the port does
+    (``device="cpu"`` asks for the CPU).
     """
+    from .packed import resolve_device      # packed imports this module
+
+    dev = resolve_device(device)
     ea = np.asarray(ea)
     eb = np.asarray(eb)
     if not (0 <= sentinel < ea.shape[0]):
@@ -279,7 +284,6 @@ def build_edge_grid(ea: np.ndarray, eb: np.ndarray, num_real: int,
     for c, l in enumerate(lists):
         ids[c, :len(l)] = l
         lens[c] = len(l)
-    dev = torch.device(device)
     return EdgeGrid(cell_ids=torch.as_tensor(ids, device=dev),
                     cell_len=torch.as_tensor(lens, device=dev),
                     gnx=gnx, gny=gny, gcell=gcell, sentinel=int(sentinel),

@@ -36,6 +36,14 @@ copy from pageable host memory, which synchronises a CUDA stream), so a
 batch is dispatched without waiting on the device.  :data:`TRACES` counts
 the first sighting of each entry's shape key, the warmup check.
 
+The sharded serving primitives (``repro_torch.sharding``, DESIGN.md §9)
+live here too: :func:`pack_bucketed_split` packs per-shard slabs with
+clipped edge sets straight onto each shard's device, and the cross-shard
+entries (:func:`gather_masked_labels`, :func:`covis_blocked`,
+:func:`join_masked`, the quantized wire :func:`gather_quant_rows` /
+:func:`dequant_masked_labels`) are the fold and join above, cut so that
+each side folds on its owning shard.
+
 Everything the query computes is float32/int32; the host oracle is
 float64.
 
@@ -63,6 +71,7 @@ the reference's byte for byte.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -371,6 +380,10 @@ class BucketedIndex:
         return len(self.widths)
 
     @property
+    def num_regions(self) -> int:
+        return self.region_bucket.shape[0]
+
+    @property
     def num_edges(self) -> int:
         return self.edges_a.shape[0]
 
@@ -398,6 +411,12 @@ class BucketedIndex:
                             used_slots=used, total_slots=total,
                             waste=1.0 - used / max(1, total)))
         return out
+
+    def label_slots(self) -> tuple[int, int]:
+        """(used, total) label slots across all buckets."""
+        st = self.bucket_stats()
+        return (sum(s["used_slots"] for s in st),
+                sum(s["total_slots"] for s in st))
 
     def quant_stats(self) -> dict:
         """Realized quantization record (fallbacks are loud, not silent)."""
@@ -553,15 +572,19 @@ def _cell_mapper(index: EHLIndex, live: list) -> np.ndarray:
     return mapper
 
 
-def _pack_edges(scene_or_index, lane: int):
+def _pack_edges(scene_or_index, lane: int, mask: np.ndarray | None = None):
     """Pack (a, b, c) edge arrays, degenerate-padded with >= 1 sentinel.
 
+    ``mask`` selects an edge subset (the per-shard clip), order preserved.
     Every padding slot is the degenerate triple (a == b == c), provably
     non-blocking under the §5 predicate for every query segment.
     """
     scene = getattr(scene_or_index, "scene", scene_or_index)
     edges = scene.edges
     enext = scene.edge_next
+    if mask is not None:
+        edges = edges[mask]
+        enext = enext[mask]
     E = edges.shape[0]
     Ep = padded_edge_count(E, lane)
     ea = np.zeros((Ep, 2), dtype=np.float32)
@@ -1280,6 +1303,103 @@ def join_masked(masked_s, masked_t, s: torch.Tensor, t: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# sharded dispatch primitives (repro_torch.sharding, DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+class _EdgeSet(NamedTuple):
+    """An edge set as :func:`_segvis` reads it: one shard's clipped edge
+    tensors and their grid, apart from the artifact that holds them."""
+    edges_a: torch.Tensor
+    edges_b: torch.Tensor
+    edges_c: torch.Tensor
+    grid: EdgeGrid | None = None
+
+
+def _width_bucket(bx: BucketedIndex, width: int) -> int:
+    """The widest local bucket that fits under a join width."""
+    return max((k for k, w in enumerate(bx.widths) if w <= width), default=0)
+
+
+def gather_labels_at_width(bx: BucketedIndex, regions: torch.Tensor,
+                           width: int):
+    """Gather [B] regions' labels as dense [B, width] tensors.
+
+    ``width`` must be >= the widest bucket any of ``regions`` lives in —
+    the host router guarantees that by dispatching at ``max(endpoint
+    widths)``.
+    """
+    bucket = _width_bucket(bx, width)
+    TRACES.see("gather_labels_at_width", regions.device.type,
+               regions.shape[0], width, *_layout_key(bx, bucket))
+    return _gather_bucketed(bx, regions, bucket, width)
+
+
+def join_gathered(labels_s, labels_t, s: torch.Tensor, t: torch.Tensor,
+                  edges_a: torch.Tensor, edges_b: torch.Tensor,
+                  edges_c: torch.Tensor | None = None,
+                  grid: EdgeGrid | None = None, use_kernels: bool = False,
+                  want_argmin: bool = False, qerr2=None):
+    """Eq. 1-3 over pre-gathered label tensors (both sides [B, W]).
+
+    Single-device convenience form (one edge set answers both sides).  The
+    sharded router uses the split-phase entries below instead, so each
+    side's visibility runs on the device whose clipped edge set covers it.
+    ``qerr2``: see :func:`_join_masked`.
+    """
+    s = s.to(torch.float32)
+    t = t.to(torch.float32)
+    TRACES.see("join_gathered", s.device.type, *labels_s[0].shape,
+               want_argmin, qerr2 is not None)
+    edges = _EdgeSet(edges_a, edges_b,
+                     edges_b if edges_c is None else edges_c, grid)
+    masked_s = _mask_labels(labels_s, s, edges, use_kernels)
+    masked_t = _mask_labels(labels_t, t, edges, use_kernels)
+    covis = _segvis(s, t, edges, use_kernels)
+    return _join_masked(masked_s, masked_t, s, t, covis, use_kernels,
+                        want_argmin, qerr2=qerr2)
+
+
+def gather_masked_labels(bx: BucketedIndex, regions: torch.Tensor,
+                         pts: torch.Tensor, width: int,
+                         use_kernels: bool = False):
+    """Gather + visibility-fold one endpoint side on its owning shard.
+
+    ``regions`` are the shard's local region ids (the host router's).  The
+    owning shard's edge subset is clipped to its owned regions dilated by
+    their label reach, which covers every (query point -> via) segment of
+    queries located in those regions, so the returned (hub, vd, vid) triple
+    is bitwise-identical to the full-edge single-device fold.  For a
+    cross-shard query the t-side triple then moves to the s-side device
+    ([B, W] tensors, not slabs) for :func:`join_masked`.
+    """
+    pts = pts.to(torch.float32)
+    bucket = _width_bucket(bx, width)
+    TRACES.see("gather_masked_labels", pts.device.type, pts.shape[0], width,
+               *_layout_key(bx, bucket))
+    labels = _gather_bucketed(bx, regions, bucket, width)
+    return _mask_labels(labels, pts, bx, use_kernels)
+
+
+def covis_blocked(s: torch.Tensor, t: torch.Tensor, edges_a: torch.Tensor,
+                  edges_b: torch.Tensor, edges_c: torch.Tensor,
+                  grid: EdgeGrid | None = None,
+                  use_kernels: bool = False) -> torch.Tensor:
+    """[B] int32 — 1 where a *local* edge blocks the direct s->t segment.
+
+    The distributed co-visibility test: each shard whose owned bounding box
+    the batch touches answers against its own clipped edges, and the router
+    ORs the verdicts — the union of participating clips covers every edge
+    the segment can cross, so the OR equals the single-device covis bit.
+    """
+    s = s.to(torch.float32)
+    t = t.to(torch.float32)
+    TRACES.see("covis_blocked", s.device.type, s.shape[0], grid is not None)
+    vis = _segvis(s, t, _EdgeSet(edges_a, edges_b, edges_c, grid),
+                  use_kernels)
+    return (~vis).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # quantized layouts: exact-argmin rescue (DESIGN.md §11)
 # ---------------------------------------------------------------------------
 
@@ -1348,6 +1468,330 @@ def splice_rescue(quant6, exact5) -> tuple:
     for o, e in zip(outs, exact5):
         o[m] = _host(e)[m]
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# the cross-shard quantized wire (DESIGN.md §9/§11)
+# ---------------------------------------------------------------------------
+
+def wire_dtypes(bx: BucketedIndex) -> tuple:
+    """(id dtype, distance dtype) of the cross-shard quantized wire.
+
+    Unified per artifact: if *any* bucket fell back to raw int32 ids (range
+    overflow) the whole wire ships int32, decoded; likewise any float32
+    distance fallback widens the distance plane.  u16 ids ship as their
+    device storage (``U16_STORAGE``, the int16 bits), so one wire dtype
+    serves every bucket mix.
+    """
+    id_dt = U16_STORAGE
+    for arr in (*bx.hub_ids, *bx.via_ids):
+        if arr.dtype != U16_STORAGE:
+            id_dt = torch.int32
+    dist_dt = bx.layout.dist_dtype
+    for arr in bx.via_d:
+        if arr.dtype != dist_dt:
+            dist_dt = torch.float32
+    return id_dt, dist_dt
+
+
+def _gather_quant_plane(slabs, bases, src_bucket, src_row, widths,
+                        bucket: int, W: int, wire_i32: bool, pad_raw,
+                        B: int):
+    """One id plane of the quantized wire gather (hub or via): encoded rows
+    and their bases, or decoded int32 rows (bases 0) on an int32 wire."""
+    dev = src_bucket.device
+    if wire_i32:
+        enc = torch.full((B, W), int(pad_raw), dtype=torch.int32, device=dev)
+    else:
+        enc = torch.full((B, W), -1, dtype=U16_STORAGE, device=dev)
+    base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for k in range(bucket + 1):
+        w = widths[k]
+        rows = torch.clamp(src_row, 0, slabs[k].shape[0] - 1)
+        sel = src_bucket == k
+        if wire_i32:
+            plane = _decode_ids(slabs[k][rows], bases[k][rows], pad_raw)
+        else:
+            plane = slabs[k][rows]
+            base = torch.where(sel, bases[k][rows], base)
+        enc[:, :w] = torch.where(sel[:, None], plane, enc[:, :w])
+    return enc, base
+
+
+def gather_quant_rows(bx: BucketedIndex, regions: torch.Tensor,
+                      pts: torch.Tensor, width: int,
+                      use_kernels: bool = False):
+    """Owner-side half of the quantized cross-shard gather.
+
+    Ships the *encoded* label rows — (hub_enc, hub_base, dq, via_enc,
+    via_base, vis) — instead of the decoded float32 masked triple, cutting
+    the wire from 12 to ~7 bytes per slot.  The visibility verdict is
+    computed here (the owner holds the clipped edge set); the decode and
+    the distance sum happen on the joining device
+    (:func:`dequant_masked_labels`), which reproduces the owner-side fold
+    bit for bit (same expression, same input bits).
+    """
+    pts = pts.to(torch.float32)
+    bucket = _width_bucket(bx, width)
+    TRACES.see("gather_quant_rows", pts.device.type, pts.shape[0], width,
+               *_layout_key(bx, bucket))
+    id_dt, dist_dt = wire_dtypes(bx)
+    wire_i32 = id_dt == torch.int32
+    regions = regions.long()
+    src_bucket = bx.region_bucket[regions]
+    src_row = bx.region_row[regions].long()
+    B = regions.shape[0]
+    henc, hbase = _gather_quant_plane(
+        bx.hub_ids, bx.hub_base, src_bucket, src_row, bx.widths, bucket,
+        width, wire_i32, HUB_PAD, B)
+    venc, vbase = _gather_quant_plane(
+        bx.via_ids, bx.vid_base, src_bucket, src_row, bx.widths, bucket,
+        width, wire_i32, -1, B)
+    dq = torch.full((B, width), float("inf"), dtype=dist_dt,
+                    device=pts.device)
+    for k in range(bucket + 1):
+        w = bx.widths[k]
+        rows = torch.clamp(src_row, 0, bx.via_d[k].shape[0] - 1)
+        sel = src_bucket == k
+        dq[:, :w] = torch.where(sel[:, None], bx.via_d[k][rows].to(dist_dt),
+                                dq[:, :w])
+    vid = _decode_ids(venc, vbase, -1)
+    xy = _via_xy_of(vid, bx.vert_xy)
+    vis = _segvis(torch.repeat_interleave(pts, width, dim=0),
+                  xy.reshape(-1, 2), bx, use_kernels).reshape(B, width)
+    return henc, hbase, dq, venc, vbase, vis
+
+
+def dequant_masked_labels(henc, hbase, dq, venc, vbase, vis,
+                          pts: torch.Tensor, vert_xy: torch.Tensor):
+    """Joining-device half: decode shipped quantized rows into the masked
+    triple — the same ``where(vis, norm + d, inf)`` expression as the
+    owner-side fold (:func:`_mask_labels`), so the result is
+    bitwise-identical to having shipped the decoded rows."""
+    pts = pts.to(torch.float32)
+    TRACES.see("dequant_masked_labels", pts.device.type, *henc.shape,
+               henc.dtype, dq.dtype)
+    hub = _decode_ids(henc, hbase, HUB_PAD)
+    vid = _decode_ids(venc, vbase, -1)
+    xy = _via_xy_of(vid, vert_xy)
+    inf = _scalar(float("inf"), torch.float32, pts.device)
+    vd = torch.where(vis, _norm(pts[:, None] - xy) + dq.to(torch.float32),
+                     inf)
+    return hub, vd, vid
+
+
+# ---------------------------------------------------------------------------
+# the split packer: per-shard slabs and clipped edges (DESIGN.md §9/§10)
+# ---------------------------------------------------------------------------
+
+def _region_clip_boxes(index: EHLIndex, live: list, packs: list,
+                       cell_region: np.ndarray) -> np.ndarray:
+    """[R, 4] per-region visibility-reach boxes (xmin, ymin, xmax, ymax).
+
+    The box spans the region's own cells *and* every via vertex its labels
+    reach: any (query point -> via) segment of a query located in the
+    region stays inside the box (a segment lies in the bounding box of its
+    endpoints), and so does the region-local part of any s->t segment.
+    Dilated by a small slack so float32 sign tests on nearly-touching
+    edges can never disagree with the clip.
+    """
+    R = len(live)
+    cs = float(index.cell_size)
+    iy, ix = np.divmod(np.arange(index.mapper.size), index.nx)
+    boxes = np.full((R, 4), np.inf)
+    boxes[:, 2:] = -np.inf
+    np.minimum.at(boxes[:, 0], cell_region, ix * cs)
+    np.minimum.at(boxes[:, 1], cell_region, iy * cs)
+    np.maximum.at(boxes[:, 2], cell_region, (ix + 1) * cs)
+    np.maximum.at(boxes[:, 3], cell_region, (iy + 1) * cs)
+    for r, p in enumerate(packs):
+        xy = p["via_xy"]
+        if len(xy):
+            boxes[r, 0] = min(boxes[r, 0], xy[:, 0].min())
+            boxes[r, 1] = min(boxes[r, 1], xy[:, 1].min())
+            boxes[r, 2] = max(boxes[r, 2], xy[:, 0].max())
+            boxes[r, 3] = max(boxes[r, 3], xy[:, 1].max())
+    slack = 1e-3 * max(index.scene.width, index.scene.height)
+    boxes[:, :2] -= slack
+    boxes[:, 2:] += slack
+    return boxes
+
+
+def _shard_edge_mask(index: EHLIndex, clip_boxes: np.ndarray,
+                     members: np.ndarray) -> np.ndarray:
+    """[E] bool — edges whose bbox meets any owned region's clip box."""
+    edges = index.scene.edges
+    if edges.shape[0] == 0:
+        return np.zeros(0, dtype=bool)
+    ex0 = np.minimum(edges[:, 0, 0], edges[:, 1, 0])
+    ex1 = np.maximum(edges[:, 0, 0], edges[:, 1, 0])
+    ey0 = np.minimum(edges[:, 0, 1], edges[:, 1, 1])
+    ey1 = np.maximum(edges[:, 0, 1], edges[:, 1, 1])
+    bx = clip_boxes[members]                            # [Rk, 4]
+    hit = ((ex0[None] <= bx[:, 2:3]) & (ex1[None] >= bx[:, 0:1]) &
+           (ey0[None] <= bx[:, 3:4]) & (ey1[None] >= bx[:, 1:2]))
+    return hit.any(axis=0)
+
+
+def pack_bucketed_split(index: EHLIndex, region_shard: np.ndarray,
+                        num_shards: int | None = None, lane: int = 128,
+                        reuse_edges_from=None, reuse_edge_masks=None,
+                        edge_grid: bool | None = None,
+                        layout: SlabLayout = LAYOUT_F32, device="cuda"):
+    """Freeze a host index into per-shard width-bucketed slabs.
+
+    The shard-aware sibling of :func:`pack_bucketed`: ``region_shard`` maps
+    each live region (in live-rid order, as ``packed_label_counts``) to a
+    shard; each shard gets its own :class:`BucketedIndex` holding only its
+    regions' slabs, with the bucket ladder recomputed from its own label
+    counts (a region's bucket *width* is invariant — smallest power-of-two
+    multiple of ``lane`` — so sharded join widths match the unsharded
+    dispatch widths exactly).
+
+    ``device``: one device, whose type the shards round-robin over
+    (``launch.mesh.shard_devices``; ``cuda`` raises without a card), or a
+    sequence of one device per shard.  Each shard is packed straight onto
+    its own device.
+
+    **Edges are not replicated**: each shard carries only the edges whose
+    bounding box meets one of its owned regions' clip boxes (region cells +
+    every via vertex its labels reach, slack-dilated) — sufficient for both
+    the label-visibility fold of queries it owns and its share of the
+    distributed co-visibility test (DESIGN.md §9/§10).  Each subset gets
+    its own edge grid per the ``edge_grid`` policy.
+
+    Every shard's mapper covers the full grid; cells owned by other shards
+    resolve to local row 0 — harmless, because the host-side routing table
+    returned alongside is what decides which shard a query is sent to.
+
+    ``reuse_edges_from`` (+ ``reuse_edge_masks``): previous-generation
+    per-shard artifacts and their edge masks — a shard's device-resident
+    edge tensors and grid are aliased iff its clip mask is unchanged (the
+    recompression may have changed label reach, so masks are compared, not
+    assumed); an aliased shard must already live on its device.
+
+    Returns ``(shards, route)``: the per-shard ``BucketedIndex`` list plus
+    the host-side routing table — cell arrays (``cell_shard``,
+    ``cell_local``, ``cell_bucket``, ``cell_row``, ``cell_width``) and the
+    per-shard ``edge_mask`` list and owned bounding ``shard_rects`` the
+    router's distributed covis test uses.
+    """
+    from repro_torch.launch.mesh import shard_devices
+
+    live, packs = _host_packs(index)
+    R = len(live)
+    region_shard = np.asarray(region_shard, dtype=np.int32)
+    if region_shard.shape != (R,):
+        raise ValueError(f"region_shard has shape {region_shard.shape}, "
+                         f"index has {R} live regions")
+    S = int(num_shards) if num_shards is not None \
+        else int(region_shard.max(initial=-1)) + 1
+    if isinstance(device, (list, tuple)):
+        devices = shard_devices(device, S)
+    else:
+        devices = shard_devices(None, S, device=device)
+    counts = index.packed_label_counts()
+    if reuse_edges_from is None or hasattr(reuse_edges_from, "edges_a"):
+        reuse_edges_from = [reuse_edges_from] * S
+    if reuse_edge_masks is None:
+        reuse_edge_masks = [None] * S
+
+    # global region -> (local id, local bucket, local row) within its shard
+    region_local = np.zeros(R, dtype=np.int32)
+    region_lbucket = np.zeros(R, dtype=np.int32)
+    region_lrow = np.zeros(R, dtype=np.int32)
+    region_width = np.array([bucket_width(max(1, int(c)), lane)
+                             for c in counts], dtype=np.int32)
+    cell_region = _cell_mapper(index, live)
+    clip_boxes = _region_clip_boxes(index, live, packs, cell_region)
+
+    shards, edge_masks, shard_rects = [], [], np.zeros((S, 4))
+    for k, dev in enumerate(devices):
+        members = np.nonzero(region_shard == k)[0]
+        if members.size == 0:
+            raise ValueError(f"shard {k} owns no regions — plan fewer "
+                             "shards or rebalance")
+        region_local[members] = np.arange(members.size, dtype=np.int32)
+        widths_k = sorted({int(region_width[i]) for i in members})
+        bucket_of_width = {w: b for b, w in enumerate(widths_k)}
+        lbucket = np.array([bucket_of_width[int(region_width[i])]
+                            for i in members], dtype=np.int32)
+        lrow = np.zeros(members.size, dtype=np.int32)
+        slab_members: list[list[int]] = [[] for _ in widths_k]
+        for li, gi in enumerate(members):
+            b = lbucket[li]
+            lrow[li] = len(slab_members[b])
+            slab_members[b].append(int(gi))
+        region_lbucket[members] = lbucket
+        region_lrow[members] = lrow
+
+        slabs = []
+        for b, w in enumerate(widths_k):
+            arrs = _alloc_slab(max(1, len(slab_members[b])), w)
+            for row, gi in enumerate(slab_members[b]):
+                _fill_row(arrs, row, packs[gi])
+            slabs.append(arrs)
+
+        mask = _shard_edge_mask(index, clip_boxes, members)
+        edge_masks.append(mask)
+        # owned bounding rect: which batches this shard's covis test covers
+        cells_k = np.nonzero(region_shard[cell_region] == k)[0]
+        iy, ix = np.divmod(cells_k, index.nx)
+        cs = float(index.cell_size)
+        shard_rects[k] = (ix.min() * cs, iy.min() * cs,
+                          (ix.max() + 1) * cs, (iy.max() + 1) * cs)
+
+        reuse = reuse_edges_from[k]
+        prev_mask = reuse_edge_masks[k]
+        edges = None
+        if reuse is not None and prev_mask is not None \
+                and np.array_equal(prev_mask, mask):
+            if _device_key(reuse.device) != _device_key(dev):
+                raise ValueError(f"shard {k}: reuse_edges_from lives on "
+                                 f"{reuse.device}, not on {dev}")
+            edges = (reuse.edges_a, reuse.edges_b, reuse.edges_c)
+            ea = eb = ec = None
+            grid = reuse.grid
+        else:
+            ea, eb, ec = _pack_edges(index, lane, mask=mask)
+            grid = _maybe_grid(ea, eb, int(mask.sum()), index.scene,
+                               edge_grid, dev)
+
+        # full-grid mapper: owned cells -> local id, foreign cells -> 0
+        mapper_k = np.where(region_shard[cell_region] == k,
+                            region_local[cell_region], 0).astype(np.int32)
+        planes = dict(
+            hub_ids=[a[0] for a in slabs], via_xy=[a[1] for a in slabs],
+            via_d=[a[2] for a in slabs], via_ids=[a[3] for a in slabs],
+            mapper=mapper_k, region_bucket=lbucket, region_row=lrow,
+            edges_a=ea, edges_b=eb, edges_c=ec, nx=index.nx, ny=index.ny,
+            cell_size=index.cell_size, width=index.scene.width,
+            height=index.scene.height, widths=widths_k, grid=grid)
+        if layout.quantized:
+            quant = [_quantize_slab(a, layout) for a in slabs]
+            planes.update(
+                hub_ids=[q[0] for q in quant], via_xy=[],
+                via_d=[q[1] for q in quant], via_ids=[q[2] for q in quant],
+                vert_xy=_vert_table(index), hub_base=[q[3] for q in quant],
+                vid_base=[q[4] for q in quant],
+                qerr=max((q[5] for q in quant), default=0.0), layout=layout,
+                residual=ResidualTable(
+                    [a[2] for a in slabs], lbucket, lrow, mapper_k,
+                    widths_k, index.nx, index.ny, float(index.cell_size)))
+        shards.append(_to_device(planes, dev, edges=edges))
+
+    route = dict(
+        region_shard=region_shard,
+        region_local=region_local,
+        cell_region=cell_region,
+        cell_shard=region_shard[cell_region],
+        cell_local=region_local[cell_region],
+        cell_bucket=region_lbucket[cell_region],
+        cell_row=region_lrow[cell_region],
+        cell_width=region_width[cell_region],
+        edge_mask=edge_masks,
+        shard_rects=shard_rects)
+    return shards, route
 
 
 def dispatch_buckets(bx: BucketedIndex, s, t) -> np.ndarray:

@@ -29,8 +29,14 @@ actually allocates — and is enforced on every candidate before it goes live.
 Device work of an attempt (probe validation and the candidate's warmup)
 runs on the artifact's own device and that device's default stream, the
 stream the serving paths compute on, whether the attempt runs inline or on
-the background thread.  Region sharding (``num_shards > 1``) comes with the
-sharding slice of the port.
+the background thread.
+
+Region sharding (``num_shards > 1``): the budget stays a *total* device
+budget; each shard replicates the full-grid mapper and carries its clipped
+edge tensors, so the compressible slab budget shrinks by that overhead
+(``sharded_overhead_bytes``), every candidate is also held to a per-shard
+cap, and ``SwappableEngine.swap`` of a ``ShardedQueryEngine`` flips every
+shard under one generation.
 """
 
 from __future__ import annotations
@@ -49,8 +55,11 @@ from repro_torch.core.grid import EHLIndex
 from repro_torch.core.packed import (LAYOUT_F32, bucketed_device_bytes,
                                      pack_bucketed, resolve_device,
                                      slab_layout)
+from repro_torch.launch.mesh import shard_devices
 from repro_torch.obs.locks import make_lock
 from repro_torch.serving.query_engine import make_engine
+from repro_torch.sharding import (ShardedQueryEngine, ShardPlanner,
+                                  sharded_overhead_bytes)
 
 from .planner import BudgetPlanner, PlanDecision
 from .recorder import WorkloadRecorder
@@ -109,8 +118,9 @@ class IndexManager:
     ``backend``: ``cuda`` (the Hopper kernels; their plain twins on CPU
     tensors) or ``torch`` (the twins).  ``device``: where every generation's
     artifact lives; ``cuda`` raises without a card.  ``num_shards > 1``
-    raises ``NotImplementedError`` (``mesh`` and ``shard_tol`` keep the
-    reference's signature).
+    serves a region-sharded artifact (``repro_torch.sharding``) on
+    ``shard_devices(mesh, num_shards, device)``, each shard held to
+    ``shard_tol`` times its fair share of the budget.
     """
 
     def __init__(self, index: EHLIndex, device_budget_bytes: int,
@@ -126,10 +136,6 @@ class IndexManager:
         if backend not in ("torch", "cuda"):
             raise ValueError("IndexManager serves packed artifacts; "
                              f"backend must be torch|cuda, got {backend!r}")
-        if int(num_shards) > 1:
-            raise NotImplementedError(
-                "region-sharded serving (num_shards > 1) is not ported yet "
-                "(ROADMAP queue 1, item 8: sharding)")
         self.device = resolve_device(device)
         self.host_index = index
         self._base = index.snapshot_regions()
@@ -150,8 +156,33 @@ class IndexManager:
         if isinstance(layout, str):
             layout = slab_layout(layout)
         self.layout = layout if layout is not None else LAYOUT_F32
+        # sharded serving (repro_torch.sharding): the budget stays a *total*
+        # device-byte budget; each shard replicates the mapper and carries
+        # its clipped edges, so the compressible slab budget shrinks by that
+        # overhead and candidates are also held to a per-shard cap
+        self.num_shards = int(num_shards)
+        self.mesh = mesh
+        self.shard_tol = float(shard_tol)
+        self._shard_planner = None
+        self._shard_devices = None
+        overhead = 0
+        if self.num_shards > 1:
+            self._shard_planner = ShardPlanner(self.num_shards, lane=lane,
+                                               tol=shard_tol,
+                                               layout=self.layout)
+            self._shard_devices = shard_devices(mesh, self.num_shards,
+                                                device=self.device)
+            overhead = sharded_overhead_bytes(index, self.num_shards, lane,
+                                              layout=self.layout)
+            if overhead >= device_budget_bytes:
+                raise ValueError(
+                    f"device budget {device_budget_bytes}B is infeasible "
+                    f"for {self.num_shards} shards: replicated mapper + "
+                    f"edge tensors alone cost {overhead}B")
+        self._shard_overhead = overhead
+        slab_budget = device_budget_bytes - overhead
         self.recorder = WorkloadRecorder.for_index(index, halflife=halflife)
-        self.planner = BudgetPlanner(device_budget_bytes, alpha=alpha,
+        self.planner = BudgetPlanner(slab_budget, alpha=alpha,
                                      min_queries=min_queries,
                                      replan_threshold=replan_threshold,
                                      exit_threshold=exit_threshold,
@@ -162,8 +193,8 @@ class IndexManager:
         self.planner.events = self.telemetry.events
         # initial fit: uniform scores (no traffic observed yet)
         if bucketed_device_bytes(index, lane,
-                                 layout=self.layout) > device_budget_bytes:
-            compress_to_device_budget(index, device_budget_bytes, lane=lane,
+                                 layout=self.layout) > slab_budget:
+            compress_to_device_budget(index, slab_budget, lane=lane,
                                       layout=self.layout)
         art0 = self._pack()
         if art0.device_bytes() > device_budget_bytes:
@@ -199,10 +230,11 @@ class IndexManager:
         return self.engine.device_bytes()
 
     def device_budget_bytes(self) -> int:
-        return self.planner.device_budget_bytes
+        """Total budget (slab budget + per-shard replication overhead)."""
+        return self.planner.device_budget_bytes + self._shard_overhead
 
     def set_budget(self, device_budget_bytes: int) -> None:
-        self.planner.set_budget(device_budget_bytes)
+        self.planner.set_budget(device_budget_bytes - self._shard_overhead)
 
     def probe_set(self) -> tuple[np.ndarray, np.ndarray]:
         """The fixed probe queries swap validation runs against."""
@@ -228,7 +260,12 @@ class IndexManager:
         return stack
 
     def _pack(self, reuse_from=None):
-        """Freeze host_index into the serving artifact on the device."""
+        """Freeze host_index into the serving artifact on the device(s)
+        (sharded or not)."""
+        if self._shard_planner is not None:
+            return self._shard_planner.build(self.host_index,
+                                             reuse_edges_from=reuse_from,
+                                             device=self._shard_devices)
         return pack_bucketed(self.host_index, lane=self.lane,
                              reuse_edges_from=reuse_from, layout=self.layout,
                              device=self.device)
@@ -236,9 +273,15 @@ class IndexManager:
     @staticmethod
     def _qerr_of(artifact) -> float:
         """Worst-case per-label quantization error of a packed artifact."""
-        return float(artifact.qerr) if artifact.qerr is not None else 0.0
+        shards = getattr(artifact, "shards", None) or (artifact,)
+        return max(float(bx.qerr) if bx.qerr is not None else 0.0
+                   for bx in shards)
 
     def _make_engine(self, artifact):
+        if self._shard_planner is not None:
+            eng = ShardedQueryEngine(artifact, backend=self.backend)
+            eng.bind_telemetry(self.telemetry)
+            return eng
         return make_engine(artifact, backend=self.backend,
                            device=self.device)
 
@@ -248,14 +291,17 @@ class IndexManager:
         capacity/accuracy signal the operator should see."""
         if not self.layout.quantized:
             return
-        qs = artifact.quant_stats()
-        falls = {k: [i for i, f in enumerate(qs.get(k, ())) if f]
-                 for k in ("id_fallback", "vid_fallback", "dist_fallback")}
-        falls = {k: v for k, v in falls.items() if v}
-        if falls:
-            self.telemetry.events.emit(
-                "quant_fallback", generation=generation, shard=0,
-                qerr=qs["qerr"], **falls)
+        for shard, bx in enumerate(getattr(artifact, "shards", None)
+                                   or (artifact,)):
+            qs = bx.quant_stats()
+            falls = {k: [i for i, f in enumerate(qs.get(k, ())) if f]
+                     for k in ("id_fallback", "vid_fallback",
+                               "dist_fallback")}
+            falls = {k: v for k, v in falls.items() if v}
+            if falls:
+                self.telemetry.events.emit(
+                    "quant_fallback", generation=generation, shard=shard,
+                    qerr=qs["qerr"], **falls)
 
     # ------------------------------------------------------------ adaptation
     def maybe_adapt(self, block: bool = True) -> bool:
@@ -333,6 +379,9 @@ class IndexManager:
             build_s = sw.lap()
             trace.stage("compress", build_s)
 
+            # the live artifact's placed edge tensors are aliased (a sharded
+            # artifact's shards already live on their devices; its stored
+            # edge masks gate the reuse shard by shard)
             bx = self._pack(reuse_from=self.engine.artifact)
             candidate = self._make_engine(bx)
             repack_s = sw.lap()
@@ -363,6 +412,17 @@ class IndexManager:
                 ok = False
                 abort = (f"candidate {bx.device_bytes()}B over device "
                          f"budget {budget}B")
+            if ok and self._shard_planner is not None:
+                # per-device cap: no shard may exceed its fair share of the
+                # total budget by more than the balance tolerance
+                cap = self.shard_tol * budget / self.num_shards
+                worst = max(bx.per_shard_bytes())
+                if worst > cap:
+                    ok = False
+                    abort = (f"shard imbalance: max shard {worst}B over "
+                             f"per-device cap {cap:.0f}B "
+                             f"({self.shard_tol:.2f}x budget/"
+                             f"{self.num_shards})")
             validate_s = sw.lap()
             trace.stage("validate", validate_s)
 
@@ -405,6 +465,10 @@ class IndexManager:
                 self._close_build_trace(trace, sw, "abort")
                 return False
             self._emit_quant_fallbacks(bx, rec.generation)
+            # validation traffic must not leak into the live serving stats
+            reset = getattr(candidate, "reset_serve_counters", None)
+            if reset is not None:
+                reset()
             self.engine.swap(candidate)
             self.planner.commit()
             trace.stage("swap", sw.lap())
@@ -421,4 +485,8 @@ class IndexManager:
                    device_bytes=self.device_bytes(),
                    device_budget_bytes=self.device_budget_bytes(),
                    attempts=len(self.history))
+        if self._shard_planner is not None:
+            out.update(num_shards=self.num_shards,
+                       per_shard_bytes=self.engine.per_shard_bytes(),
+                       shard_imbalance=round(self.engine.imbalance(), 4))
         return out

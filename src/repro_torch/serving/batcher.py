@@ -418,6 +418,14 @@ class CoalescingBatcher:
             dt = time.perf_counter() - f.t_launch
             n = len(f.entries)
             outs = [o[:n] for o in outs]
+            # per-shard attribution of a sharded engine (its home shard's
+            # seconds), before the tickets complete
+            note = getattr(f.eng, "note_batch_seconds", None)
+            if note is not None:
+                note(f.key, dt)
+            shard_stats = getattr(f.eng, "shard_stats", None)
+            if shard_stats is not None:
+                stats.per_shard = shard_stats()
             if srv._recorder is not None:
                 # recorded before the tickets complete, so a caller that
                 # holds its results also sees them in the workload

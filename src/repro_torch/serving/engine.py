@@ -72,6 +72,9 @@ class ServeStats:
     queue_depth: int = 0
     queue_depth_peak: int = 0
     pipeline_peak: int = 0
+    # sharded serving (repro_torch.sharding): the engine's per-shard
+    # ShardStats rows, refreshed after every request and retired batch
+    per_shard: list = dataclasses.field(default_factory=list)
 
     @property
     def us_per_query(self) -> float:
@@ -216,6 +219,9 @@ class PathServer:
                     self.stats.batches += 1
                 bstats.queries += len(idxs)
                 bstats.seconds += time.perf_counter() - tb0
+            shard_stats = getattr(eng, "shard_stats", None)
+            if shard_stats is not None:
+                self.stats.per_shard = shard_stats()
         if self.engine.generation != gen0:
             # a swap published while this request served on the old pin
             self.stats.stale_batches += self.stats.batches - b0

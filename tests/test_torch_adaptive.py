@@ -570,12 +570,14 @@ def test_incremental_resume_preserves_answers(port_s, queries_s):
         assert d == pytest.approx(d0, abs=1e-8)
 
 
-def test_manager_signature_and_device():
-    """``num_shards > 1`` waits for the sharding slice; a non-packed
+def test_manager_signature_and_device(port_s):
+    """``num_shards > 1`` takes the sharded branch (a budget below the
+    shards' replicated overhead is refused as infeasible); a non-packed
     backend is refused; the entry point defaults to the card."""
+    with pytest.raises(ValueError, match="infeasible for 2 shards"):
+        IndexManager(fresh(port_s), 1, backend="torch", device="cpu",
+                     num_shards=2)
     idx = object()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        IndexManager(idx, 1, backend="torch", device="cpu", num_shards=2)
     with pytest.raises(ValueError, match="torch|cuda"):
         IndexManager(idx, 1, backend="host", device="cpu")
     if torch.cuda.is_available():

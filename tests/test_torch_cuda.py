@@ -761,3 +761,149 @@ def test_two_threads_load_a_cold_kernel_once_on_card(card, tmp_path,
     assert build.LOADS == {"label_join": 1}
     want = ref.label_join_rowmin_ref(*rows)
     assert all(torch.equal(o, want) for o in out) and len(out) == 2
+
+
+# ---------------------------------------------------------------------------
+# region sharding on the card: every shard on one card (round-robin)
+# ---------------------------------------------------------------------------
+
+def _sharded(idx, layout: str, device, edge_grid=None):
+    from repro_torch.core.packed import slab_layout
+    from repro_torch.sharding import ShardPlanner
+
+    return ShardPlanner(4, layout=slab_layout(layout)).build(
+        idx, edge_grid=edge_grid, device=device)
+
+
+@pytest.mark.parametrize("layout,edge_grid", [("f32", None), ("bf16", None),
+                                              ("f32", True)])
+def test_sharded_kernel_engine_equals_twin_engine(card, rooms_s, layout,
+                                                  edge_grid):
+    """The sharded engine on the kernels == the sharded twin engine on all
+    5 outputs (the rescue included on bf16), and on f32 == the single-device
+    CudaEngine, through PathServer and ``query``; the clipped grids launch
+    ``segvis_tiles``."""
+    from repro_torch.serving import CudaEngine, PathServer
+    from repro_torch.sharding import ShardedQueryEngine
+
+    idx, s, t = rooms_s
+    sh = _sharded(idx, layout, card, edge_grid)
+    assert {str(d) for d in sh.devices} == {"cuda:0"}
+    tiles = segvis_tiles.launches
+    kern = ShardedQueryEngine(sh, backend="cuda")
+    a = PathServer(kern, batch_size=64)._dispatch(s, t, True)
+    b = PathServer(ShardedQueryEngine(sh, backend="torch"),
+                   batch_size=64)._dispatch(s, t, True)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    if edge_grid:
+        assert segvis_tiles.launches > tiles
+    if layout == "f32":
+        c = PathServer(CudaEngine(pack_bucketed(idx, device=card)),
+                       batch_size=64)._dispatch(s, t, True)
+        for x, z in zip(a, c):
+            np.testing.assert_array_equal(x, z)
+        np.testing.assert_array_equal(kern.query(s, t), a[0])
+
+
+@pytest.mark.parametrize("layout,argmin", [("f32", False), ("f32", True),
+                                           ("bf16", False)])
+def test_sharded_dispatch_staged_never_syncs(card, rooms_s, layout, argmin):
+    """The sharded ``dispatch_staged`` issues a cross-shard group (folds,
+    covis on every participant, the wire on bf16, the join) without one
+    host synchronisation (a quantized argmin's flag read is the sanctioned
+    one, left out as in ``test_dispatch_staged_never_syncs``), and the
+    results equal the synchronous call's."""
+    from repro_torch.sharding import ShardedQueryEngine
+
+    idx, s, t = rooms_s
+    eng = ShardedQueryEngine(_sharded(idx, layout, card), backend="cuda")
+    eng.warmup(64, want_argmin=argmin)
+    keys = eng.buckets_of(s, t)
+    cross = [k for k in np.unique(keys)
+             if eng.router.decode_key(k)[0] != eng.router.decode_key(k)[1]]
+    key = max(cross, key=lambda k: int((keys == k).sum()))
+    sel = np.nonzero(keys == key)[0][:64]
+    sb = np.zeros((64, 2), np.float32)
+    tb = np.zeros((64, 2), np.float32)
+    sb[:len(sel)], tb[:len(sel)] = s[sel], t[sel]
+    staged = eng.stage(sb, tb, key)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = eng.dispatch_staged(staged, key, want_argmin=argmin)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = pending.wait()
+    want = eng.batch_argmin(sb, tb, key) if argmin \
+        else (eng.batch(sb, tb, key),)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
+@pytest.mark.parametrize("layout", ["f32", "bf16"])
+def test_sharded_warmup_leaves_nothing_cold_on_card(card, rooms_s, layout):
+    """After ``warmup(paths=True)`` the sharded engine's live traffic
+    (every routing key, a ragged tail, ``query_paths``, the batcher, the
+    rescue and the quantized wire on bf16) builds and loads no kernel and
+    meets no cold shape."""
+    from repro_torch.core.packed import TRACES
+    from repro_torch.kernels import build
+    from repro_torch.serving import PathServer
+    from repro_torch.sharding import ShardedQueryEngine
+
+    idx, s, t = rooms_s
+    eng = ShardedQueryEngine(_sharded(idx, layout, card), backend="cuda")
+    srv = PathServer(eng, batch_size=48)
+    srv.warmup(paths=True)
+    before = (TRACES.count, dict(build.BUILDS), dict(build.LOADS))
+    srv.query(s, t)
+    srv.query(s[:7], t[:7])
+    srv.query_paths(s[:40], t[:40], host_index=idx)
+    for argmin in (False, True):
+        tk = srv.submit(s, t, want_argmin=argmin)
+        srv.flush()
+        tk.result(timeout=120)
+    srv.stop_async()
+    if layout == "bf16":
+        assert eng.rescue_batches > 0
+    after = (TRACES.count, dict(build.BUILDS), dict(build.LOADS))
+    assert after == before, (before, after)
+    assert len(srv.stats.per_shard) == 4
+
+
+def check_cell3_sharded(idx, s, t, truth, device):
+    """The sharded engine at cell 3.0: the router's host cells send every
+    endpoint to the shard and local region where the owning shard's own
+    mapper (the rescue's ``locate_regions``) locates it on the device, and
+    every query the oracle reaches is served within 1e-4 of it, bit for bit
+    as the single-device bucketed engine serves it."""
+    from repro_torch.core.packed import locate_regions
+    from repro_torch.serving import CudaEngine, PathServer
+    from repro_torch.sharding import ShardedQueryEngine, ShardPlanner
+
+    sh = ShardPlanner(4).build(idx, device=device)
+    eng = ShardedQueryEngine(sh, backend="cuda")
+    pts = np.concatenate([s, t])
+    cells = eng.router._cells(pts)
+    owner = sh.cell_shard[cells]
+    for k, bx in enumerate(sh.shards):
+        m = owner == k
+        got = locate_regions(bx, torch.from_numpy(pts[m]).to(bx.device))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      sh.cell_local[cells[m]])
+    d = PathServer(eng, batch_size=32).query(s, t)
+    fin = np.isfinite(truth)
+    err = np.abs(d[fin] - truth[fin])
+    assert np.all(err <= 1e-4), float(err.max())
+    want = PathServer(CudaEngine(pack_bucketed(idx, device=device)),
+                      batch_size=32).query(s, t)
+    np.testing.assert_array_equal(d, want)
+    return int(fin.sum())
+
+
+def test_cell3_sharded_location_on_card(card):
+    """At cell 3.0 the sharded engine's host routing agrees with every
+    shard's device location and serves the boundary queries as the
+    single-device engine and the float64 oracle do."""
+    idx, _, _, s, t, truth = cell3_case(card)
+    assert check_cell3_sharded(idx, s, t, truth, card) > 0

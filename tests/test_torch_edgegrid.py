@@ -154,6 +154,20 @@ def test_build_edge_grid_planes_equal_reference(walk_case):
     assert got.device_bytes() == want.device_bytes()
 
 
+def test_build_edge_grid_defaults_to_the_card(scene_s, monkeypatch):
+    """Like every entry point of the port, ``build_edge_grid`` runs on the
+    card unless the caller asks for the CPU: with no ``device`` and no
+    card it raises, and ``device="cpu"`` builds on the CPU."""
+    ea, eb, _ = port_packed._pack_edges(scene_s, lane=128)
+    args = (ea, eb, scene_s.edges.shape[0], scene_s.width, scene_s.height)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_edgegrid.build_edge_grid(*args, sentinel=ea.shape[0] - 1)
+    grid = port_edgegrid.build_edge_grid(*args, sentinel=ea.shape[0] - 1,
+                                         device="cpu")
+    assert grid.cell_ids.device.type == "cpu"
+
+
 def test_plan_grid_matches_reference(scene_s):
     ea, eb, _ = port_packed._pack_edges(scene_s, lane=128)
     E = scene_s.edges.shape[0]
