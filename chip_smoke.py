@@ -12,7 +12,7 @@ point location at a cell size that is not a power of two (``check: cell
 3.0``: rooms-S seed 1 at cell 3.0, points on and one float32 ulp below
 every cell boundary, located on the card where the host routing and the
 residual table locate them, served within 1e-4 of the float64 oracle),
-then drives eight serving paths, each with the launch counts set to 0 just
+then drives nine serving paths, each with the launch counts set to 0 just
 before it and read just after, and each with a ``warmup:`` line (nvcc
 builds, ctypes loads and cold shape keys met on live traffic after
 ``warmup(paths=True)``, all required to be 0, and the allocator's segment
@@ -23,6 +23,18 @@ count before and after):
   policy leaves it dense), served by a ``CudaEngine`` behind
   ``PathServer(batch_size=256)`` for 2000 uniform queries (seed 33) plus
   ``query_paths`` on 64 of them (``segvis`` + ``label_join_rowmin``);
+* the telemetry path (DESIGN.md §12-§13): the same artifact behind a
+  fresh ``PathServer(batch_size=128)`` that samples every request, with
+  ``obs.enable_profile(timing=True)`` installed before its warmup: cold
+  entries (``entry_cold_total``) and kernel builds and loads in the
+  registry at warmup and none on live traffic, answers equal to the same
+  server's under ``Telemetry.off()`` and to the batch-256 path's bit for
+  bit, every sync and async span tree complete and telescoping within 5%,
+  a shed, the Prometheus export round-tripping with ``serve_queries_total``
+  and ``bucket_queries_total`` equal to what was served and routed,
+  ``entry_stream_ms`` and the kernels' analytic costs of one pass, then
+  the overhead of ``Telemetry()`` against ``Telemetry.off()`` and of the
+  capture against none (printed, not gated);
 * the single slab: the same index packed by ``pack_index`` (every batch
   at the slab's own width, the largest region's label count rounded up to
   the lane: 384 on rooms-M), whose device bytes must equal
@@ -85,11 +97,16 @@ Before the adaptive path, the f16 layout is checked once (answers only),
 and a fresh rooms-M build is merged to 0.6x the f32 artifact's device
 bytes under the bf16 layout (``compress_to_device_budget``) and served.  ``label_join_rowmin``
 is also held against its twin with bf16 and f16 distances at every
-main-path width.  The answers are checked against the twin engine on the
+main-path width, and the ``label_join`` entry (the row join, then
+``torch.amin``; on no serving path, as in the reference) against
+``label_join_ref`` at float32, bf16 and f16.  The bf16 path's
+``rescue_batches_total`` and the sharded path's per-shard
+``shard_slots_total`` are read back from the export.  The answers are checked against the twin engine on the
 card (bit for bit) and the float64 host oracle (1e-4, plus 2·qerr on a
 quantized artifact).  Prints the card, the build time, per-kernel times
 beside the twins' and the bound (counted from what each run's inputs
-need: ``pairs_needed``, ``join_bytes``), the ``segvis`` time at every group
+need: ``pairs_needed``, ``join_bytes``, on the shape terms of
+``obs.profile.kernel_cost``), the ``segvis`` time at every group
 size G on the main-path operands, one JSON line of kernel records and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 exit code is non-zero and the last line is never printed.  Needs one CUDA
@@ -107,6 +124,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# the shape terms of every bound: the port's cost model of one launch
+from repro_torch.obs.profile import (SEGVIS_OPS_PER_PAIR,  # noqa: E402
+                                     TILE_BYTES_PER_SLOT, TILE_OPS_PER_SLOT,
+                                     kernel_cost)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
 # tensor cores.  bound_ms = max(bytes / HBM, ops / F32).
@@ -117,15 +140,9 @@ F32_OPS_PER_S = 67e12
 # 132 SMs * 128 float32 lanes * 1.98 GHz boost clock.  Printed beside the
 # segvis bound as a note, never used as the bound.
 F32_UNFUSED_ISSUE_PER_S = 132 * 128 * 1.98e9
-# float32 operations per (segment, edge) pair once the segment's own terms
-# (dx, dy, l2, tau, l2 - tau) and the edge's (bx - ax, by - ay) are hoisted
-# (csrc/blocked_pairs.cuh): 6 differences to the endpoints, 8 cross
-# products, 4 banded signs at 3 operations and 2 compares.  A pair whose
-# edge end b lies on the segment's line needs 14 more (the fifth sign and
-# the projection); exact contacts only, so the bound leaves them out.
-SEGVIS_OPS_PER_PAIR = 6 + 8 + 4 * 5
-# a gathered slot is its own edge: the two edge differences per slot too
-TILE_OPS_PER_SLOT = SEGVIS_OPS_PER_PAIR + 2
+# SEGVIS_OPS_PER_PAIR (34) and TILE_OPS_PER_SLOT (36) come from the cost
+# model (``repro_torch.obs.profile``); the bounds below refine its all-pairs
+# and all-slots counts to what each run's inputs need.
 # the dense row join per (i, j) pair: hub compare, select, min
 ROWMIN_OPS_PER_PAIR = 3
 # the main path (the defaults of the reference's serving example)
@@ -137,6 +154,12 @@ GRID_MAP, GRID_SEED = "rooms-S", 0
 TILE_CHUNK = 8192
 # queries per submit of the async path's bursts
 ASYNC_BURST = 250
+# the telemetry path: a batch size no other path serves at (every shape key
+# cold for its server) and its one-query submits
+TELEMETRY_BATCH, TELEMETRY_TRICKLES = 128, 256
+# the most of a sync trace's end-to-end time its reply (the remainder after
+# the stamped stages: scatter and stats) may take
+SYNC_REPLY_SHARE = 0.25
 # the adaptive path (the reference's adaptive demo on the main map): the
 # uncompressed index under a device budget of 0.2x its bucketed artifact,
 # rounds of Cluster-2 traffic, the workload shifting at the midpoint; the
@@ -386,8 +409,8 @@ def pairs_needed(args, chunk: int = 8192) -> int:
 def join_bytes(B: int, L: int, dist_bytes: int = 4) -> int:
     """Bytes the sorted row join must move: hub_s, hub_t (4 bytes a label)
     and vd_s, vd_t (``dist_bytes`` a label) read once, the [B, L] float32
-    output written once."""
-    return 2 * B * L * 4 + 2 * B * L * dist_bytes + B * L * 4
+    output written once (``kernel_cost``)."""
+    return kernel_cost("label_join_rowmin", (B, L), dist_bytes)["bytes"]
 
 
 def join_dense_ops(B: int, L: int) -> int:
@@ -639,6 +662,7 @@ def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
                    by_path: dict) -> None:
     """The rooms-M index packed bf16/u16 (DESIGN.md §11), driven through
     ``CudaEngine`` as the other paths are, and its f16 twin checked once."""
+    from repro_torch import obs
     from repro_torch.core.packed import (bucketed_device_bytes,
                                          pack_bucketed, slab_layout)
     from repro_torch.serving import CudaEngine, PathServer, TorchEngine
@@ -672,13 +696,22 @@ def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
     eng.rescue_batches = eng.rescue_rows = 0
     eng.rescue_seconds = 0.0
     batches = srv.stats.batches
+    rescued0 = series_of(obs.REGISTRY, "rescue_batches_total", "engine")
     got = check_answers(srv, PathServer(TorchEngine(qbx), batch_size=BATCH),
                         run, s, t, index, qs, qerr=qerr)
     batches = srv.stats.batches - batches
+    export_round_trips(obs.REGISTRY)
+    rescued = grown(series_of(obs.REGISTRY, "rescue_batches_total",
+                              "engine"), rescued0)
+    # (the twin engine's rescues land on its own row, engine="torch")
+    require(rescued.get("cuda") == eng.rescue_batches > 0,
+            f"rescue_batches_total grew by {rescued}, the CudaEngine "
+            f"rescued {eng.rescue_batches}")
     print(f"rescue: one argmin pass of {len(s)} queries: {eng.rescue_batches}"
           f" of {batches} batches rescued, {eng.rescue_rows} of "
           f"{batches * BATCH} rows (padding included), host "
-          f"{1e3 * eng.rescue_seconds:.3f} ms")
+          f"{1e3 * eng.rescue_seconds:.3f} ms; exported "
+          f"rescue_batches_total{{engine=cuda}} grew by {rescued['cuda']}")
     # (b) distances within 2·qerr of the f32 path, (c) winners bit for bit
     dense_d = dense_got[0]
     diff = np.abs(run["d"] - dense_d)[np.isfinite(dense_d)]
@@ -889,6 +922,323 @@ def serve_async(srv, s, t, chunks, argmin: bool = False):
     cols = [np.concatenate(c) for c in zip(*outs)] if argmin \
         else [np.concatenate(outs)]
     return cols, wall
+
+
+def series_of(reg, name: str, key: str) -> dict:
+    """{label ``key``: value} of one registry series family."""
+    return {dict(m.labels).get(key): m.value for m in reg.series(name)}
+
+
+def grown(now: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+def complete_traces(traces, stages, what: str) -> int:
+    """Every trace closed, carrying every stage of ``stages``, no stage
+    negative (stamps out of order), its stages summing to its end-to-end
+    time within 5%.  A sync trace's stamped stages (``route``,
+    ``dispatch``) are positive and its ``reply``, the remainder after the
+    stamps, is at most SYNC_REPLY_SHARE of the whole, so a stage left
+    unstamped shows; an answered async trace waited on the device
+    (``device_join`` positive).  Returns the count."""
+    require(traces, f"no {what} traces recorded")
+    for tr in traces:
+        require(tr.closed and tr.complete(stages),
+                f"a {what} trace lacks a stage: {sorted(tr.stages)}")
+        require(min(tr.stages.values()) >= 0.0,
+                f"a {what} trace has a negative stage: {tr.stages}")
+        require(abs(tr.stage_sum - tr.e2e_seconds)
+                <= 0.05 * tr.e2e_seconds,
+                f"a {what} trace does not telescope: stages "
+                f"{tr.stage_sum} s, e2e {tr.e2e_seconds} s")
+        if tr.kind == "sync" and not tr.attrs.get("coarse"):
+            require(tr.stages["route"] > 0 and tr.stages["dispatch"] > 0
+                    and tr.stages["reply"]
+                    <= SYNC_REPLY_SHARE * tr.e2e_seconds,
+                    f"a sync trace left a stage unstamped: {tr.stages}, "
+                    f"e2e {tr.e2e_seconds} s")
+        if tr.kind == "async" and tr.attrs["outcome"] == "ok":
+            require(tr.stages["device_join"] > 0,
+                    f"an async trace has no device_join: {tr.stages}")
+    return len(traces)
+
+
+def export_round_trips(reg) -> dict:
+    """The registry's Prometheus text parsed back: every counter and gauge
+    to its value, every histogram to its count.  Returns the parse."""
+    from repro_torch import obs
+
+    parsed = obs.parse_prometheus(obs.prometheus_text(reg))
+    for m in reg.metrics():
+        key = tuple(m.labels)
+        if isinstance(m, obs.Histogram):
+            require(parsed[m.name + "_count"][key] == m.count,
+                    f"export: histogram {m.name} count")
+        else:
+            require(parsed[m.name][key] == m.value,
+                    f"export: series {m.name}{dict(key)} does not round-trip")
+    return parsed
+
+
+def telemetry_path(bx, index, dense_got, s, t, kernels, twins,
+                   by_path: dict) -> None:
+    """The serving telemetry and attribution on the card (DESIGN.md §12-§13).
+
+    A fresh rooms-M dense server at batch TELEMETRY_BATCH (every shape key
+    cold for it) that samples every request, with the profile capture
+    timing every entry by CUDA events installed before its warmup: cold
+    entries and kernel builds and loads in the registry, none on live
+    traffic; answers equal to the same server's under ``Telemetry.off()``
+    without the capture, and to the batch-256 dense path's, bit for bit on
+    all 5 outputs; sync and async span trees complete and telescoping; a
+    shed; the export round-tripping with the serving and bucket series;
+    per-entry stream ms and the kernels' analytic costs of one pass.  Then
+    the overhead of the default ``Telemetry()`` against ``Telemetry.off()``
+    and of the capture against none, printed and not gated."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.packed import SERVING_ENTRIES, TRACES
+    from repro_torch.kernels import build
+    from repro_torch.serving import CudaEngine, PathServer, QueueFull
+
+    label = f"{MAP} telemetry"
+    print(f"path: {label}")
+    reg = obs.REGISTRY
+    for k in kernels.values():
+        k.launches = 0
+    for f in twins:
+        f.calls = 0
+    tel = obs.Telemetry(sample_rate=1.0)
+    eng = CudaEngine(bx)
+    srv = PathServer(eng, batch_size=TELEMETRY_BATCH, telemetry=tel)
+    cap = obs.enable_profile(timing=True)
+    try:
+        by_entry0 = dict(TRACES.by_entry)
+        cold0 = series_of(reg, "entry_cold_total", "entry")
+        srv.warmup(paths=True)
+        met = grown(TRACES.by_entry, by_entry0)
+        cold = grown(series_of(reg, "entry_cold_total", "entry"), cold0)
+        require({"fold_endpoint", "join_endpoints"} <= set(met)
+                and cold == met,
+                f"warmup: entry_cold_total {cold} != TRACES growth {met}")
+        recorded = {e: len(r) for e, r in cap.by_entry().items()}
+        require(recorded == {e: n for e, n in met.items()
+                             if e in SERVING_ENTRIES},
+                f"capture's cold calls {recorded} != TRACES growth {met}")
+        require(series_of(reg, "kernel_builds_total", "kernel")
+                == build.BUILDS
+                and series_of(reg, "kernel_loads_total", "kernel")
+                == build.LOADS,
+                "kernel_builds_total / kernel_loads_total != BUILDS / LOADS")
+        warm = cold_state()
+        cold_warm = series_of(reg, "entry_cold_total", "entry")
+        cold_s = series_of(reg, "entry_cold_seconds_total", "entry")
+        print(f"attribution: warmup at batch {TELEMETRY_BATCH}: cold calls "
+              + ", ".join(f"{e} {n}" + (f" ({cold_s[e]:.4f} s)"
+                                         if e in cold_s else "")
+                          for e, n in sorted(met.items()))
+              + f"; nvcc builds {build.BUILDS}, loads {build.LOADS}")
+
+        # live traffic: sync passes, paths, the argmin dispatch, async
+        routed = np.zeros(eng.num_buckets, np.int64)
+
+        def route(a, b):
+            routed[:] += np.bincount(eng.buckets_of(a, b),
+                                     minlength=eng.num_buckets)
+
+        d = srv.query(s, t)
+        route(s, t)
+        srv.query_paths(s[:PATHS], t[:PATHS], host_index=index)
+        route(s[:PATHS], t[:PATHS])
+        got = srv._dispatch(s, t, want_argmin=True)
+        route(s, t)
+        ops0 = series_of(reg, "kernel_cost_ops_total", "kernel")
+        bytes0 = series_of(reg, "kernel_cost_bytes_total", "kernel")
+        srv.query(s, t)
+        route(s, t)
+        pass_ops = grown(series_of(reg, "kernel_cost_ops_total", "kernel"),
+                         ops0)
+        pass_bytes = grown(series_of(reg, "kernel_cost_bytes_total",
+                                     "kernel"), bytes0)
+        n = len(s)
+        trickle = [(i, i + 1) for i in range(TELEMETRY_TRICKLES)]
+        burst = [(i, min(n, i + ASYNC_BURST))
+                 for i in range(0, n, ASYNC_BURST)]
+        (dt,), _ = serve_async(srv, s, t, trickle)
+        route(s[:TELEMETRY_TRICKLES], t[:TELEMETRY_TRICKLES])
+        (db,), _ = serve_async(srv, s, t, burst)
+        route(s, t)
+        srv.stop_async()
+        require(np.array_equal(dt, dense_got[0][:TELEMETRY_TRICKLES])
+                and np.array_equal(db, dense_got[0]),
+                "telemetry async answers != the dense path's")
+        # a shed: one submit larger than an empty queue's bound
+        srv.start_async(max_queue=1, policy="shed")
+        try:
+            srv.submit(s[:2], t[:2])
+            require(False, "a submit over max_queue was admitted")
+        except QueueFull:
+            pass
+        srv.stop_async()
+        report_warmup(label, warm)
+        require(series_of(reg, "entry_cold_total", "entry") == cold_warm,
+                "live traffic added to entry_cold_total")
+        require(all(len(r) == recorded[e]
+                     for e, r in cap.by_entry().items()),
+                "live traffic credited a cold call")
+        summary = cap.summary()
+    finally:
+        obs.disable_profile()
+    launches = {n_: k.launches for n_, k in kernels.items()}
+    by_path[label] = launches
+    require(launches["segvis"] > 0 and launches["label_join_rowmin"] > 0
+            and launches["segvis_tiles"] == 0,
+            f"telemetry path launches: {launches}")
+    require(all(f.calls == 0 for f in twins), "the telemetry path ran a twin")
+    print("launches: telemetry path: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+
+    # answers: == Telemetry.off() without the capture, == batch 256
+    off = PathServer(CudaEngine(bx), batch_size=TELEMETRY_BATCH,
+                     telemetry=obs.Telemetry.off())
+    off.warmup(paths=True)
+    d_off = off.query(s, t)
+    got_off = off._dispatch(s, t, want_argmin=True)
+    require(np.array_equal(d, d_off) and np.array_equal(d, dense_got[0]),
+            "telemetry-on distances != Telemetry.off() / batch-256 dense")
+    for name, a, b, c in zip(ANSWERS, got, got_off, dense_got):
+        require(np.array_equal(a, b),
+                f"telemetry on vs off (batch {TELEMETRY_BATCH}) {name}")
+        require(np.array_equal(a, c),
+                f"batch {TELEMETRY_BATCH} vs batch {BATCH} dense {name}")
+    print(f"check: {label}: answers with telemetry (sample rate 1.0, "
+          f"profile timing) == Telemetry.off() without the capture == the "
+          f"batch-{BATCH} dense path, all 5 outputs bit for bit ({n} "
+          f"queries at batch {TELEMETRY_BATCH})")
+
+    # spans and events
+    n_sync = complete_traces(tel.spans.traces("sync"), obs.SYNC_STAGES,
+                             "sync")
+    require(all(tr.stages["unwind"] > 0 for tr in tel.spans.traces("sync")
+                if tr.attrs.get("argmin") and not tr.attrs.get("coarse")),
+            "query_paths trace without unwind time")
+    traces = tel.spans.traces("async")
+    shed = [tr for tr in traces if tr.attrs["outcome"] == "shed"]
+    n_async = complete_traces(traces, obs.ASYNC_STAGES, "async")
+    require(len(shed) == 1 and len(tel.events.events("shed")) == 1
+            and srv.stats.shed == 2, "shed: one trace, one event, 2 queries")
+    print(f"check: {label}: {n_sync} sync traces ({', '.join(obs.SYNC_STAGES)})"
+          f" and {n_async} async traces ({len(obs.ASYNC_STAGES)} stages; "
+          f"{TELEMETRY_TRICKLES} trickles, {len(burst)} bursts, 1 shed) "
+          f"complete, no stage negative, stage sums within 5% of e2e, "
+          f"sync reply <= {SYNC_REPLY_SHARE} of e2e, async device_join > 0;"
+          f" events "
+          f"{tel.events.counts()}")
+
+    # the export
+    parsed = export_round_trips(reg)
+    srv_lbl = srv.stats.labels["srv"]
+    served = [v for k, v in parsed["serve_queries_total"].items()
+              if dict(k)["srv"] == srv_lbl]
+    want_served = 3 * n + PATHS + TELEMETRY_TRICKLES
+    require(served == [srv.stats.queries] == [want_served],
+            f"serve_queries_total {served} != {want_served} served")
+    rows = {int(dict(k)["bucket"]): v
+            for k, v in parsed["bucket_queries_total"].items()
+            if dict(k)["srv"] == srv_lbl and dict(k)["gen"] == "0"}
+    require(rows == {k: int(c) for k, c in enumerate(routed) if c},
+            f"bucket_queries_total {rows} != routed {routed.tolist()}")
+    print(f"check: {label}: export round-trips ({len(parsed)} families, "
+          f"{len(reg.metrics())} series); serve_queries_total {served[0]} "
+          f"= queries served; bucket_queries_total{{gen=0}} {rows} = "
+          f"queries routed per bucket")
+
+    # attribution
+    print("attribution: entry_stream_ms (stream time between CUDA events, "
+          "host gaps included, resolved after the traffic): " + ", ".join(
+              f"{e} median {v['stream_ms_median']:.4f} ms x "
+              f"{v['stream_calls']}" for e, v in summary.items()
+              if v["stream_calls"]))
+    print(f"attribution: kernel cost of one {n}-query pass at batch "
+          f"{TELEMETRY_BATCH}: " + ", ".join(
+              f"{k} {pass_ops[k]:.0f} ops, {pass_bytes[k]:.0f} bytes"
+              for k in sorted(pass_ops)))
+    require(set(pass_ops) == {"segvis", "label_join_rowmin"},
+            f"kernel costs of a dense pass: {pass_ops}")
+    telemetry_overhead(bx, s, t)
+
+
+def telemetry_overhead(bx, s, t) -> None:
+    """Interleaved best-of-3: sync passes and bursts of ASYNC_BURST through
+    the batcher, the default ``Telemetry()`` against ``Telemetry.off()``,
+    then the profile capture (CUDA-event timing) against none.  qps ratios
+    and p99 request latency, printed beside the reference's gates."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.serving import CudaEngine, PathServer
+
+    n = len(s)
+    servers = {"default": PathServer(CudaEngine(bx), batch_size=BATCH),
+               "off": PathServer(CudaEngine(bx), batch_size=BATCH,
+                                 telemetry=obs.Telemetry.off())}
+    for srv in servers.values():
+        srv.warmup()
+        srv.start_async()
+
+    def sync_pass(srv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.query(s, t)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def burst_pass(srv):
+        t0 = time.perf_counter()
+        tickets = [srv.submit(s[i:i + ASYNC_BURST], t[i:i + ASYNC_BURST])
+                   for i in range(0, n, ASYNC_BURST)]
+        require(srv.drain(timeout=120), "overhead: drain timed out")
+        wall = time.perf_counter() - t0
+        return wall, [tk.completed_at - tk.t_submit for tk in tickets]
+
+    def measure(configs):
+        best = {c: [np.inf, np.inf] for c in configs}
+        lat = {c: [] for c in configs}
+        for _ in range(3):
+            for c, (srv, profile) in configs.items():
+                cap = obs.enable_profile(timing=True) if profile else None
+                try:
+                    w_sync = sync_pass(srv)
+                    w_burst, ls = burst_pass(srv)
+                finally:
+                    if cap is not None:
+                        obs.disable_profile()
+                        cap.drain()
+                best[c] = [min(best[c][0], w_sync), min(best[c][1], w_burst)]
+                lat[c] += ls
+        return best, {c: 1e3 * float(np.percentile(v, 99))
+                      for c, v in lat.items()}
+
+    for what, configs in (
+            ("Telemetry() vs Telemetry.off()",
+             {"on": (servers["default"], False),
+              "off": (servers["off"], False)}),
+            ("profile capture (timing) vs none",
+             {"on": (servers["default"], True),
+              "off": (servers["default"], False)})):
+        best, p99 = measure(configs)
+        (s_on, b_on), (s_off, b_off) = best["on"], best["off"]
+        print(f"overhead: {what}, best of 3 interleaved: sync qps ratio "
+              f"{s_off / s_on:.4f} ({n / s_on:.1f} vs {n / s_off:.1f} qps), "
+              f"burst qps ratio {b_off / b_on:.4f} ({n / b_on:.1f} vs "
+              f"{n / b_off:.1f} qps through drain), burst request p99 "
+              f"{p99['on']:.3f} vs {p99['off']:.3f} ms; the reference's "
+              f"gates (DESIGN.md §12, not applied): qps ratio >= 0.97, p99 "
+              f"<= 1.25x + 2 ms")
+    for srv in servers.values():
+        srv.stop_async()
 
 
 def async_path(bx, dense_got, s, t, kernels, twins, by_path: dict) -> None:
@@ -1454,6 +1804,16 @@ def sharded_path(index, bx, sh, gsh, dense_got, s, t, qs, kernels, twins,
         require(np.array_equal(a, b), f"sharded async argmin {name} != sync")
     srv.stop_async()
     require(len(srv.stats.per_shard) == SHARDS, "per_shard rows missing")
+    parsed = export_round_trips(obs.REGISTRY)
+    eng_id = eng.shard_stats()[0].labels["eng"]
+    slots = {int(dict(k)["shard"]): v
+             for k, v in parsed["shard_slots_total"].items()
+             if dict(k)["eng"] == eng_id}
+    require(slots == {st.shard: st.slots for st in srv.stats.per_shard}
+            and sorted(slots) == list(range(SHARDS)),
+            f"exported shard_slots_total {slots}")
+    print(f"check: {label}: exported shard_slots_total for shards "
+          f"{sorted(slots)} = the per-shard views {list(slots.values())}")
     print(f"check: {label} async == sync on all 5 outputs (trickle and burst "
           f"distances, burst argmin); us/query through drain: " + ", ".join(
               f"{k} {1e6 * w / n:.3f}" for k, w in walls.items()))
@@ -1685,12 +2045,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on a GPU")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import (build_ehl, build_visgraph,
                                   compress_to_fraction, make_map,
                                   pack_bucketed, uniform_queries)
     from repro_torch.core.edgegrid import gather_edge_tiles
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.label_join import label_join_rowmin
     from repro_torch.kernels.segvis import _launch as segvis_launch
     from repro_torch.kernels.segvis import block_threads, launch_shape, segvis
@@ -1826,6 +2185,25 @@ def main() -> None:
     print(f"check: label_join_rowmin == twin with bf16 and f16 distances "
           f"(float32 out) at B = {B}, L in {bx.widths}, synthetic and "
           f"main-path rows")
+    # the label_join entry: the row join, then torch.amin over the row
+    ops.label_join_kernel.launches = 0
+    entry_err = 0.0
+    for L in bx.widths:
+        for what, (hs, vs, ht, vt) in (("synthetic", join_args[L]),
+                                       ("main-path", main_ops[L][3])):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                args = (hs, vs.to(dt), ht, vt.to(dt))
+                got = ops.label_join_kernel(*args)
+                want = ref.label_join_ref(*args)
+                torch.cuda.synchronize()
+                require(got.dtype == torch.float32 and torch.equal(got, want),
+                        f"label_join != label_join_ref at {dt}, {what} "
+                        f"B={B}, L={L}")
+                entry_err = max(entry_err, max_abs_err(got, want))
+    entry_checks = ops.label_join_kernel.launches
+    print(f"check: label_join (row join + amin) == label_join_ref at B = "
+          f"{B}, L in {bx.widths}, float32, bf16 and f16 distances, "
+          f"synthetic and main-path rows ({entry_checks} launches)")
     tile_args, tile_dense = {}, {}
     tile_err = 0.0
     for gb, vs in ((sbx, np.asarray(sgraph.nodes)), (gbx, verts)):
@@ -1887,8 +2265,11 @@ def main() -> None:
     cell3_check(dev)
 
     # -- 4. dense main path: CudaEngine behind PathServer ----------------------
+    # label_join (the row join + amin entry) is on no serving path, as in
+    # the reference: every path reads its count, which stays 0
     kernels = {"segvis": segvis, "label_join_rowmin": label_join_rowmin,
-               "segvis_tiles": segvis_tiles}
+               "segvis_tiles": segvis_tiles,
+               "label_join": ops.label_join_kernel}
     by_path = {}
     print(f"path: {MAP} dense (default policy)")
     srv = PathServer(CudaEngine(bx), batch_size=B)
@@ -1906,6 +2287,9 @@ def main() -> None:
 
     # -- 6. where the serving time goes (device kernels vs wall) -------------
     spread_and_profile(srv, s, t)
+
+    # -- 6a. serving telemetry and attribution on the dense path -------------
+    telemetry_path(bx, index, dense_got, s, t, kernels, twins, by_path)
 
     # -- 6b. the single slab, f32 path and bf16 answers -----------------------
     slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev, by_path)
@@ -1989,10 +2373,11 @@ def main() -> None:
         n = args[0].shape[0]
         ms, wrap, plain = times(lambda: segvis(*args),
                                 lambda: ref.segvis_ref(*args), "segvis_kernel")
-        nbytes = 2 * n * 8 + 3 * E * 8 + n      # p, q, edges in; flags out
+        cost = kernel_cost("segvis", (n, E))     # all pairs; p, q, edges in
+        nbytes = cost["bytes"]
         need = pairs_needed(args)
         b_ms, by = bound(nbytes, SEGVIS_OPS_PER_PAIR * need)
-        all_ms, _ = bound(nbytes, SEGVIS_OPS_PER_PAIR * n * E)
+        all_ms, _ = bound(nbytes, cost["ops"])
         issue_ms = 1e3 * SEGVIS_OPS_PER_PAIR * need / F32_UNFUSED_ISSUE_PER_S
         g, threads = launch_shape(n)
         print(f"time: segvis {what} N={n} E={E} (G={g}, {threads} threads "
@@ -2009,8 +2394,10 @@ def main() -> None:
         ms, wrap, plain = times(lambda: label_join_rowmin(*args),
                                 lambda: ref.label_join_rowmin_ref(*args),
                                 "label_join_rowmin_kernel")
-        nbytes = join_bytes(Bj, L, args[1].element_size())
-        b_ms, by = bound(nbytes, 0)
+        cost = kernel_cost("label_join_rowmin", (Bj, L),
+                           args[1].element_size())
+        nbytes = cost["bytes"]
+        b_ms, by = bound(nbytes, cost["ops"])
         dense_ms, _ = bound(0, join_dense_ops(Bj, L))
         print(f"time: label_join_rowmin {what} B={Bj} L={L} "
               f"{args[1].dtype}: kernel {ms:.5f} ms (wrapper {wrap:.5f} "
@@ -2034,6 +2421,23 @@ def main() -> None:
                                         narrow_rows[(name, w)])[1]
     main_seg.insert(0, seg_time(f"main-path covis W={max(main_ops)}",
                                 main_ops[max(main_ops)][2]))
+
+    # the label_join entry (row join + torch.amin) on the main path's rows
+    # at the widest width: all device ops of one call, beside the twin
+    entry_rows = []
+    for w in sorted(main_ops):
+        args = main_ops[w][3]
+        ms = sum(us for _, us in device_ms(
+            lambda: ops.label_join_kernel(*args), 50).values()) / 50 / 1e3
+        plain = sum(us for _, us in device_ms(
+            lambda: ref.label_join_ref(*args), 5).values()) / 5 / 1e3
+        cost = kernel_cost("label_join", tuple(args[0].shape))
+        b_ms, by = bound(cost["bytes"], cost["ops"])
+        entry_rows.append((w, ms, plain, b_ms, by))
+        print(f"time: label_join (entry) main-path B={B} L={w}: kernels "
+              f"{ms:.5f} ms (row join + amin), twin {plain:.5f} ms, bound "
+              f"{b_ms:.5f} ms ({by}: {cost['bytes']} bytes, the [B] minima "
+              f"out)")
 
     # segvis at every group size G on the main path's operands (CUDA-graph
     # device time, so the host's launch path is not in it): why
@@ -2063,10 +2467,10 @@ def main() -> None:
         # bytes and operations of the slots the OR must read on these
         # inputs (up to each segment's first blocking slot), p/q in, flags out
         need = slots_needed(args)
-        b_ms, by = bound(6 * 4 * need + 2 * n * 8 + n,
+        cost = kernel_cost("segvis_tiles", (n, S))   # all slots
+        b_ms, by = bound(cost["bytes"] - TILE_BYTES_PER_SLOT * (n * S - need),
                          TILE_OPS_PER_SLOT * need)
-        full_ms, _ = bound(6 * 4 * n * S + 2 * n * 8 + n,
-                           TILE_OPS_PER_SLOT * n * S)
+        full_ms, _ = bound(cost["bytes"], cost["ops"])
         tile_rows.append(((S, n), ms, plain, b_ms, by))
         print(f"time: segvis_tiles N={n} S={S}: kernel {ms:.5f} ms (wrapper "
               f"{wrap:.5f} ms), twin {plain:.5f} ms, bound {b_ms:.5f} ms "
@@ -2106,6 +2510,21 @@ def main() -> None:
         record("segvis_tiles", "src/repro_torch/kernels/csrc/segvis_tiles.cu",
                "src/repro/kernels/segvis.py:124", tile_rows, tile_err,
                "N={1},S={0}".format(*tile_rows[-1][0])),
+        # no engine path calls the label_join entry (as in the reference):
+        # its main-path launches are 0, its launches in this script's
+        # checks are beside them
+        {"name": "label_join", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/label_join.cu + torch.amin "
+                   "(src/repro_torch/kernels/ops.py label_join_kernel)",
+         "replaces": "src/repro/kernels/label_join.py:92",
+         "launches": totals["label_join"],
+         "launches_by_path": {p: run["label_join"]
+                              for p, run in by_path.items()},
+         "launches_in_checks": entry_checks,
+         "max_abs_err": entry_err, "ms": entry_rows[-1][1],
+         "plain_ms": entry_rows[-1][2], "bound_ms": entry_rows[-1][3],
+         "bound_by": entry_rows[-1][4], "library_ms": None,
+         "shape": f"main-path B={B},L={entry_rows[-1][0]}"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

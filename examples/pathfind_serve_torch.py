@@ -35,8 +35,20 @@ failed probe validation, probe answers equal across every swap boundary
 (within the quantization bounds with ``--quantize``) and every artifact
 within the budget, and with ``--serve-async`` ends with the async check on
 the final generation.  ``--backend cuda`` (and the default ``--device
-cuda``) exits non-zero without a card.  The telemetry export comes with a
-later slice of the port.
+cuda``) exits non-zero without a card.
+
+``--metrics`` exports the telemetry (DESIGN.md §12) on exit —
+``telemetry.prom``, ``telemetry.json`` and ``events.jsonl`` under
+``--metrics-dir`` — with the profile capture (DESIGN.md §13) installed
+before the first warmup, and self-checks the export: the Prometheus text
+round-trips, ``serve_queries_total`` is above 0, ``entry_cold_total`` is
+present (and on the card ``kernel_cost_ops_total``), every shard's
+``shard_slots_total`` with ``--shards``, and swap events, ``builds_total``
+and ``build_stage_ms`` with ``--adaptive``:
+
+    PYTHONPATH=src python examples/pathfind_serve_torch.py --device cpu \
+        --map rooms-S --queries 64 --batch 16 --paths 8 --serve-async \
+        --metrics --metrics-dir build/telemetry
 
 ``--shards N`` serves through the region-sharded engine (DESIGN.md §9):
 the bucketed slabs are planned onto N shards, one per card where the
@@ -55,6 +67,7 @@ shard under one generation.
 """
 
 import argparse
+import os
 import pathlib
 import sys
 
@@ -64,6 +77,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 if str(ROOT / "src") not in sys.path:
     sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import (build_ehl, build_visgraph,  # noqa: E402
                               bucketed_device_bytes, cluster_queries,
                               compress_to_fraction, make_map, pack_bucketed,
@@ -131,7 +145,26 @@ def main(argv=None) -> int:
     ap.add_argument("--async-swap", action="store_true",
                     help="[adaptive] build/validate/swap on a background "
                          "thread instead of between rounds")
+    ap.add_argument("--metrics", action="store_true",
+                    help="export telemetry.prom, telemetry.json and "
+                         "events.jsonl under --metrics-dir on exit and "
+                         "self-check the export")
+    ap.add_argument("--metrics-dir", default=str(ROOT / "build" / "telemetry"),
+                    help="[metrics] output directory")
     args = ap.parse_args(argv)
+    if not args.metrics:
+        return run(args)
+    # the cold-entry and kernel-cost attribution rides along with the
+    # export; installed before the first warmup, so the warmup's cold keys
+    # are attributed, and uninstalled on the way out
+    obs.enable_profile()
+    try:
+        return run(args)
+    finally:
+        obs.disable_profile()
+
+
+def run(args) -> int:
     backend = args.backend
     if backend != "host":
         try:
@@ -258,6 +291,14 @@ def main(argv=None) -> int:
         if err > 1e-4 + 2 * qerr:
             print("PATHS SMOKE FAILED: path lengths disagree with d")
             return 1
+    print(f"served in all: {srv.stats.queries} queries")
+    if args.metrics:
+        failures = dump_metrics(args, srv.telemetry, server=srv,
+                                on_card=backend == "cuda"
+                                and resolve_device(dev).type == "cuda")
+        if failures:
+            print("METRICS SMOKE FAILED:\n  " + "\n  ".join(failures))
+            return 1
     return 0
 
 
@@ -362,6 +403,11 @@ def run_sharded(args, backend: str) -> int:
         failures += check_quantized(eng_q, eng, s, t, qerr)
     if args.serve_async:
         failures += check_async(srv2, s, t, "sharded")
+    if args.metrics:
+        failures += dump_metrics(args, srv2.telemetry, server=srv2,
+                                 expect_shards=args.shards,
+                                 on_card=backend == "cuda"
+                                 and resolve_device(dev).type == "cuda")
     if failures:
         print("SHARDED SMOKE FAILED:\n  " + "\n  ".join(failures))
         return 1
@@ -393,11 +439,15 @@ def run_adaptive(args, backend: str) -> int:
     # validate_tol=0: a candidate goes live only if its probe answers equal
     # the live artifact's bit for bit (quantized layouts widen it by the two
     # generations' quantization bounds), the criterion checked below
+    # one Telemetry across the manager and the server, so swap and drift
+    # events and the serving series land in one export
+    tel = obs.Telemetry()
     mgr = IndexManager(index, budget, backend=backend, device=dev,
                        batch_size=args.batch,
                        min_queries=max(64, args.queries // 4),
                        replan_threshold=0.10, min_dwell=1, probe_n=64,
-                       seed=17, validate_tol=0.0, layout=lay, **shard_kw)
+                       seed=17, validate_tol=0.0, layout=lay, telemetry=tel,
+                       **shard_kw)
     k = max(2, args.clusters)
     phases = [cluster_queries(scene, graph, k, args.queries, seed=seed,
                               require_path=False) for seed in (101, 202)]
@@ -407,7 +457,7 @@ def run_adaptive(args, backend: str) -> int:
     # reference to generation 0 outlives its swap
     jc_uni = expected_join_cost(mgr.engine.current, s2, t2)
     srv = PathServer(mgr.engine, batch_size=args.batch,
-                     recorder=mgr.recorder)
+                     recorder=mgr.recorder, telemetry=tel)
     srv.warmup()
     print(f"adaptive: budget={budget / 1e6:.3f} MB (x{args.budget:.2f} of "
           f"the uncompressed artifact), initial device="
@@ -471,12 +521,95 @@ def run_adaptive(args, backend: str) -> int:
                         "failed (swap aborted)")
     if args.serve_async:
         failures += check_async(srv, s2, t2, "adaptive")
+    if args.metrics:
+        failures += dump_metrics(
+            args, tel, server=srv, expect_swaps=args.min_swaps,
+            expect_shards=args.shards if args.shards > 1 else 0,
+            on_card=backend == "cuda" and resolve_device(dev).type == "cuda")
     if failures:
         print("ADAPTIVE SMOKE FAILED:\n  " + "\n  ".join(failures))
         return 1
     print(f"adaptive smoke OK: {mgr.swaps} hot swap(s), answers stable, "
           f"budget held")
     return 0
+
+
+def dump_metrics(args, telemetry, *, server=None, expect_shards: int = 0,
+                 expect_swaps: int = 0, on_card: bool = False) -> list:
+    """Export telemetry.prom, telemetry.json and events.jsonl and
+    self-check the export (DESIGN.md §12).  Returns failure strings:
+
+    * the Prometheus text must round-trip through ``parse_prometheus``:
+      every counter and gauge parses back to its registry value;
+    * ``serve_queries_total`` must be present with a nonzero sum, and the
+      ``server``'s own row must equal the queries it served;
+    * the cold-entry series ``entry_cold_total`` must be present, and on
+      the card (``on_card``) the kernel cost series
+      ``kernel_cost_ops_total`` of the installed profile capture;
+    * sharded runs must export ``shard_slots_total`` for every shard id;
+    * adaptive runs must have logged >= ``expect_swaps`` swap events and
+      exported ``builds_total`` and the build stage spans
+      (``build_stage_ms``).
+    """
+    out = os.path.abspath(args.metrics_dir)
+    os.makedirs(out, exist_ok=True)
+    text = obs.prometheus_text(telemetry.registry)
+    with open(os.path.join(out, "telemetry.prom"), "w") as f:
+        f.write(text)
+    with open(os.path.join(out, "telemetry.json"), "w") as f:
+        f.write(obs.json_snapshot(telemetry.registry))
+    n_events = telemetry.events.dump_jsonl(os.path.join(out, "events.jsonl"))
+
+    failures = []
+    try:
+        parsed = obs.parse_prometheus(text)
+    except ValueError as e:
+        return [f"metrics: exported Prometheus text does not parse: {e}"]
+    lost = [m.name for m in telemetry.registry.metrics()
+            if not isinstance(m, obs.Histogram)
+            and parsed.get(m.name, {}).get(tuple(m.labels)) != m.value]
+    if lost:
+        failures.append(f"metrics: {len(lost)} series do not round-trip "
+                        f"through the Prometheus text, e.g. {lost[0]}")
+    served = sum(parsed.get("serve_queries_total", {}).values())
+    if served <= 0:
+        failures.append("metrics: no serve_queries_total series exported")
+    if server is not None:
+        row = [v for k, v in parsed.get("serve_queries_total", {}).items()
+               if dict(k).get("srv") == server.stats.labels["srv"]]
+        if row != [server.stats.queries]:
+            failures.append(f"metrics: the server's serve_queries_total "
+                            f"{row} != the {server.stats.queries} queries "
+                            "it served")
+    cold = sum(parsed.get("entry_cold_total", {}).values())
+    if "entry_cold_total" not in parsed:
+        failures.append("metrics: no entry_cold_total series exported")
+    if on_card and sum(parsed.get("kernel_cost_ops_total", {}).values()) \
+            <= 0:
+        failures.append("metrics: no kernel_cost_ops_total series (the "
+                        "profile capture saw no kernel launch)")
+    if expect_shards > 0:
+        shards = {dict(k).get("shard")
+                  for k in parsed.get("shard_slots_total", {})}
+        missing = {str(i) for i in range(expect_shards)} - shards
+        if missing:
+            failures.append("metrics: per-shard series missing for "
+                            f"shard(s) {sorted(missing)}")
+    if expect_swaps > 0:
+        swaps = telemetry.events.counts().get("swap", 0)
+        if swaps < expect_swaps:
+            failures.append(f"metrics: {swaps} swap events in the log, "
+                            f"expected >= {expect_swaps}")
+        builds = sum(parsed.get("builds_total", {}).values())
+        if builds < expect_swaps:
+            failures.append(f"metrics: {builds:.0f} builds_total, "
+                            f"expected >= {expect_swaps}")
+        if sum(parsed.get("build_stage_ms_count", {}).values()) <= 0:
+            failures.append("metrics: no build_stage_ms stage spans "
+                            "exported for the adaptive build pipeline")
+    print(f"metrics: exported {len(parsed)} series ({served:.0f} queries "
+          f"served, {cold:.0f} cold entry keys), {n_events} events -> {out}")
+    return failures
 
 
 def engine_argmin(engine, s, t) -> list:

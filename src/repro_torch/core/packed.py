@@ -71,11 +71,14 @@ the reference's byte for byte.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.obs.locks import make_lock
 
 from .edgegrid import (EdgeGrid, build_edge_grid, ell_bytes, plan_grid,
@@ -218,13 +221,29 @@ class TraceCounter:
     code checks that warmup left nothing cold: snapshot ``count``, serve,
     require it unchanged.  Keys hold no artifact identity: the kernels and
     the allocator see shapes, not artifacts.
+
+    Each cold key also lands on ``entry_cold_total{entry=}`` in the
+    process-wide registry, so cold keys show in the exports
+    next to the serving series they perturb (DESIGN.md §12/§13).  Two
+    profiling hooks ride along (DESIGN.md §13): a *thread-local* count
+    (:meth:`thread_count`) lets :class:`repro_torch.obs.CompileCapture`
+    tell that a call met a cold key without crediting a background build
+    thread's keys to a foreground serving call, and ``profiler`` is the
+    installed capture (None when profiling is off — the only cost then is
+    one attribute read per entry call, :func:`_serving_entry`).
     """
 
     def __init__(self):
         self.count = 0
         self.by_entry: dict[str, int] = {}
+        self.profiler = None            # CompileCapture | None
         self._seen: set = set()
+        self._tl = threading.local()
         self._lock = make_lock("obs.series")
+
+    def thread_count(self) -> int:
+        """Cold keys met by the calling thread."""
+        return getattr(self._tl, "count", 0)
 
     def see(self, entry: str, *key) -> None:
         key = (entry,) + key
@@ -234,9 +253,49 @@ class TraceCounter:
             self._seen.add(key)
             self.count += 1
             self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
+        self._tl.count = self.thread_count() + 1
+        obs.REGISTRY.counter("entry_cold_total", entry=entry).inc()
 
 
 TRACES = TraceCounter()
+
+#: The serving entries, every ``@_serving_entry("name")`` in this module, in
+#: rough serving-path order (the reference's ``TRACE_ENTRIES``).
+SERVING_ENTRIES = (
+    "fold_endpoint",
+    "join_endpoints",
+    "gather_labels_at_width",
+    "join_gathered",
+    "gather_masked_labels",
+    "covis_blocked",
+    "join_masked",
+    "gather_masked_exact",
+    "gather_quant_rows",
+    "dequant_masked_labels",
+)
+
+
+def _serving_entry(entry: str):
+    """Name a serving entry and route it through the installed profiler.
+
+    With no profiler the wrapper costs one attribute read and one ``is
+    None`` per call.  With one installed (:func:`repro_torch.obs.
+    enable_profile`) the call goes through ``CompileCapture.call``, which
+    times it and attributes it when the entry's ``TRACES.see`` met a cold
+    key on this thread.  The body must report its key with
+    ``TRACES.see(entry, ...)`` under the same name.
+    """
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            prof = TRACES.profiler
+            if prof is None:
+                return fn(*args, **kw)
+            return prof.call(entry, fn, args, kw)
+
+        wrapper.entry = entry
+        return wrapper
+    return deco
 
 
 def resolve_device(device) -> torch.device:
@@ -1214,6 +1273,7 @@ def _layout_key(idx, bucket: int | None) -> tuple:
     return (idx.layout, "bucket", idx.widths[bucket], idx.via_d[bucket].dtype)
 
 
+@_serving_entry("fold_endpoint")
 def _fold_endpoint(idx, pts: torch.Tensor, bucket: int | None = None,
                    use_kernels: bool = False):
     """locate + gather + visibility-fold one endpoint side.
@@ -1230,6 +1290,7 @@ def _fold_endpoint(idx, pts: torch.Tensor, bucket: int | None = None,
     return _mask_labels(labels, pts, idx, use_kernels)
 
 
+@_serving_entry("join_endpoints")
 def _join_endpoints(idx, masked_s, masked_t, s: torch.Tensor,
                     t: torch.Tensor, use_kernels: bool = False,
                     want_argmin: bool = False, qerr2=None):
@@ -1287,6 +1348,7 @@ def query_batch_argmin(idx: PackedIndex, s, t, use_kernels: bool = False):
                            want_argmin=True, qerr2=qerr2)
 
 
+@_serving_entry("join_masked")
 def join_masked(masked_s, masked_t, s: torch.Tensor, t: torch.Tensor,
                 covis: torch.Tensor, use_kernels: bool = False,
                 want_argmin: bool = False, qerr2=None):
@@ -1320,6 +1382,7 @@ def _width_bucket(bx: BucketedIndex, width: int) -> int:
     return max((k for k, w in enumerate(bx.widths) if w <= width), default=0)
 
 
+@_serving_entry("gather_labels_at_width")
 def gather_labels_at_width(bx: BucketedIndex, regions: torch.Tensor,
                            width: int):
     """Gather [B] regions' labels as dense [B, width] tensors.
@@ -1334,6 +1397,7 @@ def gather_labels_at_width(bx: BucketedIndex, regions: torch.Tensor,
     return _gather_bucketed(bx, regions, bucket, width)
 
 
+@_serving_entry("join_gathered")
 def join_gathered(labels_s, labels_t, s: torch.Tensor, t: torch.Tensor,
                   edges_a: torch.Tensor, edges_b: torch.Tensor,
                   edges_c: torch.Tensor | None = None,
@@ -1359,6 +1423,7 @@ def join_gathered(labels_s, labels_t, s: torch.Tensor, t: torch.Tensor,
                         want_argmin, qerr2=qerr2)
 
 
+@_serving_entry("gather_masked_labels")
 def gather_masked_labels(bx: BucketedIndex, regions: torch.Tensor,
                          pts: torch.Tensor, width: int,
                          use_kernels: bool = False):
@@ -1380,6 +1445,7 @@ def gather_masked_labels(bx: BucketedIndex, regions: torch.Tensor,
     return _mask_labels(labels, pts, bx, use_kernels)
 
 
+@_serving_entry("covis_blocked")
 def covis_blocked(s: torch.Tensor, t: torch.Tensor, edges_a: torch.Tensor,
                   edges_b: torch.Tensor, edges_c: torch.Tensor,
                   grid: EdgeGrid | None = None,
@@ -1403,6 +1469,7 @@ def covis_blocked(s: torch.Tensor, t: torch.Tensor, edges_a: torch.Tensor,
 # quantized layouts: exact-argmin rescue (DESIGN.md §11)
 # ---------------------------------------------------------------------------
 
+@_serving_entry("gather_masked_exact")
 def gather_masked_exact(idx, pts: torch.Tensor, d_exact: torch.Tensor,
                         width: int, use_kernels: bool = False):
     """Rescue gather: quantized slabs with the exact f32 distance rows.
@@ -1518,6 +1585,7 @@ def _gather_quant_plane(slabs, bases, src_bucket, src_row, widths,
     return enc, base
 
 
+@_serving_entry("gather_quant_rows")
 def gather_quant_rows(bx: BucketedIndex, regions: torch.Tensor,
                       pts: torch.Tensor, width: int,
                       use_kernels: bool = False):
@@ -1562,6 +1630,7 @@ def gather_quant_rows(bx: BucketedIndex, regions: torch.Tensor,
     return henc, hbase, dq, venc, vbase, vis
 
 
+@_serving_entry("dequant_masked_labels")
 def dequant_masked_labels(henc, hbase, dq, venc, vbase, vis,
                           pts: torch.Tensor, vert_xy: torch.Tensor):
     """Joining-device half: decode shipped quantized rows into the masked

@@ -11,7 +11,11 @@ never load a half-written library.  Within one process, :func:`build` and
 :func:`load` run under one lock, so two threads that meet a kernel first
 at the same moment make one build and one load.  ``BUILDS`` and ``LOADS``
 count the nvcc builds and ``ctypes`` loads per source, so a warmed server
-can check that live traffic built and loaded nothing.
+can check that live traffic built and loaded nothing; the same counts land
+on ``kernel_builds_total{kernel=}`` and ``kernel_loads_total{kernel=}`` in
+the process-wide metrics registry, beside ``kernel_build_seconds_total``
+(each source's wall seconds from the start of its build call to its
+compiler's exit, as the call observes it).
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from repro_torch.obs.metrics import REGISTRY
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -88,10 +95,16 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
 
 
 def _build(names) -> dict[str, str]:
+    t0 = time.perf_counter()
     jobs = {n: job for n in names if (job := _start(n)) is not None}
     for n in jobs:
         BUILDS[n] = BUILDS.get(n, 0) + 1
-    logs = {n: proc.communicate()[0] for n, (proc, _, _) in jobs.items()}
+        REGISTRY.counter("kernel_builds_total", kernel=n).inc()
+    logs = {}
+    for n, (proc, _, _) in jobs.items():
+        logs[n] = proc.communicate()[0]
+        REGISTRY.counter("kernel_build_seconds_total", kernel=n).inc(
+            time.perf_counter() - t0)
     failed = [n for n, (proc, _, _) in jobs.items() if proc.returncode != 0]
     for name, (proc, tmp, out) in jobs.items():
         if name in failed:
@@ -114,4 +127,5 @@ def load(name: str) -> ctypes.CDLL:
                 _build((name,))
                 lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
                 LOADS[name] = LOADS.get(name, 0) + 1
+                REGISTRY.counter("kernel_loads_total", kernel=name).inc()
     return lib

@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from repro_torch.obs.profile import note_kernel
+
 from . import build
 
 
@@ -87,6 +89,7 @@ def label_join_rowmin(hub_s: torch.Tensor, vd_s: torch.Tensor,
     if err:
         raise RuntimeError(f"label_join_rowmin launch failed: cudaError {err}")
     label_join_rowmin.launches += 1
+    note_kernel("label_join_rowmin", (B, L), vd_s.element_size())
     return out
 
 

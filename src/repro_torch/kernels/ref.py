@@ -142,3 +142,26 @@ label_join_rowmin_ref.calls = 0
 def label_join_ref(hub_s, vd_s, hub_t, vd_t) -> torch.Tensor:
     """[B] — Eq. 3 distance through the best common hub."""
     return label_join_rowmin_ref(hub_s, vd_s, hub_t, vd_t).amin(dim=-1)
+
+
+def label_join_hubdense_ref(hub_s, vd_s, hub_t, vd_t, num_hubs: int
+                            ) -> torch.Tensor:
+    """[B] — the 'hub-scatter' form of Eq. 3: a segmented min of each side
+    into dense hub space, then a min-plus reduction.  O(B*(L+H)) instead of
+    O(B*L^2).  Pads (hub id >= ``num_hubs``) are dropped; narrow distances
+    are widened to float32 first.  A twin only: no kernel and no engine
+    path calls it."""
+    vd_s = vd_s.to(torch.float32)
+    vd_t = vd_t.to(torch.float32)
+    B = hub_s.shape[0]
+    inf = torch.full((), float("inf"), dtype=torch.float32,
+                     device=vd_s.device)
+
+    def dense(hub, vd):
+        safe = torch.clamp(hub, 0, num_hubs - 1).long()
+        vals = torch.where(hub < num_hubs, vd, inf)
+        out = torch.full((B, num_hubs), float("inf"), dtype=torch.float32,
+                         device=vd.device)
+        return out.scatter_reduce(1, safe, vals, reduce="amin")
+
+    return (dense(hub_s, vd_s) + dense(hub_t, vd_t)).amin(dim=-1)

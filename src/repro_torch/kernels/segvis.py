@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from repro_torch.obs.profile import note_kernel
+
 from . import build
 
 
@@ -113,6 +115,7 @@ def segvis(p: torch.Tensor, q: torch.Tensor, ea: torch.Tensor,
         return out
     _launch(p, q, ea, eb, ec, out, *launch_shape(n))
     segvis.launches += 1
+    note_kernel("segvis", (n, e))
     return out
 
 

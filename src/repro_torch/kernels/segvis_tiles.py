@@ -16,6 +16,8 @@ import ctypes
 
 import torch
 
+from repro_torch.obs.profile import note_kernel
+
 from . import build
 from .segvis import _check as _check_points
 
@@ -79,6 +81,7 @@ def segvis_tiles(p: torch.Tensor, q: torch.Tensor,
     if err:
         raise RuntimeError(f"segvis_tiles launch failed: cudaError {err}")
     segvis_tiles.launches += 1
+    note_kernel("segvis_tiles", (n, s))
     return out == 0
 
 

@@ -1,39 +1,55 @@
-"""Observability of the port: named locks, metrics, spans and events.
+"""Observability of the port: serving telemetry and attribution.
 
-The port's copies of the jax-free parts of the reference's ``repro.obs``:
+The port's copies of the jax-free parts of the reference's ``repro.obs``
+(DESIGN.md §12-§13):
 
-* :func:`make_lock` — named locks with a declared order (``locks``);
-* :class:`MetricsRegistry` — labeled counters/gauges/histograms, with the
-  process-wide :data:`REGISTRY` (``metrics``);
-* :class:`Trace`/:class:`TraceLog`/:class:`HeadSampler` — span trees,
-  head-sampled (``trace``);
+* :class:`MetricsRegistry` — labeled counters/gauges/histograms; the
+  process-wide :data:`REGISTRY` is the single source of truth that the
+  ``ServeStats``/``BucketStats``/``ShardStats`` views
+  (:class:`StatsView`) and the Prometheus/JSON exporters
+  (:func:`prometheus_text`, :func:`json_snapshot`) read;
+* :class:`Trace`/:class:`TraceLog`/:class:`HeadSampler` — per-request
+  span trees, head-sampled with an always-sample-on-slow override;
 * :class:`EventLog` — structured ring + JSONL sink for discrete state
-  changes (``events``);
-* :class:`Stopwatch` — the monotonic duration clock (``timing``).
+  changes (swaps, drift, sheds, requeues, quant fallbacks, covis);
+* :class:`CompileCapture` (:func:`enable_profile`) — cold serving entries,
+  per-entry device time from CUDA events and analytic kernel costs;
+* :func:`make_lock` — named locks with a declared order;
+  :class:`Stopwatch` — the monotonic duration clock.
 
-:class:`Telemetry` bundles sampler + trace ring + event log over a
-registry (the shared :data:`REGISTRY` by default).  The reference's
-profile capture, exporters and stats views come with the observability
-slice.
+:class:`Telemetry` bundles sampler + trace ring + event log (the registry
+defaults to the shared :data:`REGISTRY`).  ``Telemetry.off()`` builds the
+disabled variant: sampling rate 0, events suppressed — the registry stays
+live because it *is* the serving stats.  The reference's XLA-only
+``aot_cost`` and ``normalize_cost`` have no counterpart.
 """
 
 from .events import EventLog
-from .locks import (LOCK_RANKS, LockOrderError, OrderedLock,
+from .locks import (LOCK_RANKS, LockOrderError, OrderedLock, held_locks,
                     lock_check_enabled, make_lock)
 from .metrics import (DEFAULT_LATENCY_BOUNDS_MS, Counter, Gauge, Histogram,
                       MetricsRegistry, REGISTRY, log_bounds,
                       next_instance_id)
+from .export import json_snapshot, parse_prometheus, prometheus_text
+from .profile import (CompileCapture, CompileRecord, disable_profile,
+                      enable_profile, kernel_cost, profiled)
 from .timing import Stopwatch, monotonic
 from .trace import (ASYNC_STAGES, BUILD_STAGES, SYNC_STAGES, HeadSampler,
                     Span, Trace, TraceLog)
+from .views import StatsView
 
 __all__ = [
-    "ASYNC_STAGES", "BUILD_STAGES", "SYNC_STAGES", "Counter",
-    "DEFAULT_LATENCY_BOUNDS_MS", "EventLog", "Gauge", "HeadSampler",
-    "Histogram", "LOCK_RANKS", "LockOrderError", "MetricsRegistry",
-    "OrderedLock", "REGISTRY", "Span", "Stopwatch", "Telemetry", "Trace",
-    "TraceLog", "lock_check_enabled", "log_bounds", "make_lock",
-    "monotonic", "next_instance_id",
+    "ASYNC_STAGES", "BUILD_STAGES", "SYNC_STAGES",
+    "CompileCapture", "CompileRecord", "Counter",
+    "DEFAULT_LATENCY_BOUNDS_MS",
+    "EventLog", "Gauge", "HeadSampler", "Histogram", "LOCK_RANKS",
+    "LockOrderError", "MetricsRegistry", "OrderedLock",
+    "REGISTRY", "Span", "StatsView", "Stopwatch", "Telemetry", "Trace",
+    "TraceLog",
+    "disable_profile", "enable_profile", "held_locks",
+    "json_snapshot", "kernel_cost", "lock_check_enabled", "log_bounds",
+    "make_lock", "monotonic", "next_instance_id",
+    "parse_prometheus", "profiled", "prometheus_text",
 ]
 
 

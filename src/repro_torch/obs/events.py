@@ -16,6 +16,11 @@ plan_decision      BudgetPlanner decided to act (budget, alarm, dwell)
 plan_execute       BudgetPlanner recompressed (bytes and regions in/out)
 quant_fallback     a quantized bucket went loud (per-bucket f32 fallback
                    counts from the artifact's ``quant_stats``)
+shed               backpressure dropped a submit (policy="shed")
+requeue            a staged group was superseded by a swap and re-routed
+                   under the live generation
+covis_assist       a sharded dispatch needed cross-shard co-visibility
+                   verdicts (count per staged group)
 =================  ===================================================
 """
 

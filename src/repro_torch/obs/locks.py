@@ -22,6 +22,7 @@ LOCK_RANKS: dict[str, int] = {
     "engine.swap": 30,          # SwappableEngine pin/swap pointer flip
     "batcher.ticket": 40,       # Ticket result scatter
     "workload.recorder": 50,    # WorkloadRecorder histogram
+    "obs.profile": 55,          # CompileCapture records and event queue
     "obs.registry": 60,         # MetricsRegistry series creation
     "obs.series": 70,           # Counter/Gauge/Histogram mutation (leaf),
     #                             core.packed.TRACES
@@ -107,3 +108,8 @@ def make_lock(name: str):
     if name not in LOCK_RANKS:
         raise KeyError(f"lock name {name!r} has no declared rank")
     return threading.Lock()
+
+
+def held_locks() -> list[str]:
+    """Names of OrderedLocks held by the calling thread (debug aid)."""
+    return [h.name for h in _HELD.stack]

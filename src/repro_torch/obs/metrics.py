@@ -1,8 +1,9 @@
 """Process-wide metrics registry: counters, gauges, latency histograms.
 
 The port's copy of the reference's ``repro.obs.metrics`` (stdlib and numpy
-only).  The adaptive-indexing subsystem records its planner and build
-series here; the serving stats move onto it with the observability slice.
+only).  The serving stats views (``ServeStats``/``BucketStats``/
+``ShardStats``), the batcher's stage histograms, the adaptive manager's
+build series and the profile capture all record here.
 
 Design notes
 ------------

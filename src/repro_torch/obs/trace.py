@@ -8,9 +8,13 @@ their sum equals the end-to-end time exactly (modulo float rounding).
 The offline build pipeline uses ``BUILD_STAGES`` (plan → compress →
 repack → validate → stage → swap): the ``IndexManager`` closes one trace
 per adaptation attempt, including the thread handoff of an async swap,
-which lands inside the ``compress`` lap.  The serving taxonomies
-(``ASYNC_STAGES``, ``SYNC_STAGES``) are kept with the reference's names;
-the port's serving paths record them with the observability slice.
+which lands inside the ``compress`` lap.  The serving paths record the
+reference's taxonomies: ``SYNC_STAGES`` (route → dispatch → rescue →
+unwind → reply) for ``PathServer.query``/``query_paths``, and
+``ASYNC_STAGES`` (admission → queue_wait → stage → dispatch →
+pipeline_wait → device_join → rescue → unwind → reply) through the
+continuous batcher, where ``device_join`` is the ``Pending.wait`` of a
+retired group, the one host sync of that path.
 
 :class:`HeadSampler` decides once per request whether to build a trace
 (deterministic leaky bucket at ``sample_rate``, no RNG), with an

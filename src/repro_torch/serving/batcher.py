@@ -30,7 +30,12 @@ Results come back through :class:`Ticket` futures, scattered into the
 submit order of each ticket whichever flush group answered them; the
 server's workload recorder, when it has one, sees every retired query.
 Admission, queue-depth and flush-reason counters land in the server's
-``ServeStats``.
+``ServeStats``, and every group's stage timestamps in ``stage_ms{stage=}``
+and ``request_latency_ms``; head-sampled requests leave ``ASYNC_STAGES``
+span trees that telescope to their end-to-end time, a shed request a
+trace with ``outcome="shed"``, and sheds and requeues events (DESIGN.md
+§12).  A retired group's stats are closed out before its tickets
+complete, so a caller holding its results sees them counted.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.packed import empty_results
 from repro_torch.obs.locks import make_lock
 
@@ -64,7 +70,10 @@ class Ticket:
         self._remaining = n
         self._lock = make_lock("batcher.ticket")
         self._event = threading.Event()
+        self.t_submit = time.perf_counter()      # span root (obs.Trace)
+        self.completed_at: float | None = None   # perf_counter stamp
         if n == 0:
+            self.completed_at = self.t_submit
             self._event.set()
 
     def _write(self, slots: np.ndarray, cols: list) -> None:
@@ -74,6 +83,7 @@ class Ticket:
             self._remaining -= len(slots)
             done = self._remaining == 0
         if done:
+            self.completed_at = time.perf_counter()
             self._event.set()
 
     @property
@@ -93,17 +103,21 @@ class Ticket:
 
 
 class _Entry:
-    """One queued query: destination ticket slot, endpoints, arrival time
-    and the number of swap-superseded re-routes it went through."""
+    """One queued query: destination ticket slot, endpoints, arrival time,
+    the head-sampling verdict taken once at admission (traces are built
+    only at retire) and the number of swap-superseded re-routes it went
+    through."""
 
-    __slots__ = ("ticket", "slot", "s", "t", "arrived", "requeues")
+    __slots__ = ("ticket", "slot", "s", "t", "arrived", "sampled",
+                 "requeues")
 
-    def __init__(self, ticket, slot, s, t, arrived):
+    def __init__(self, ticket, slot, s, t, arrived, sampled=False):
         self.ticket = ticket
         self.slot = slot
         self.s = s
         self.t = t
         self.arrived = arrived
+        self.sampled = sampled
         self.requeues = 0
 
 
@@ -111,21 +125,28 @@ class _Flight:
     """A dispatched group awaiting retirement.  Carries its own
     ``BucketStats`` row: a generation reset between launch and retire
     replaces ``stats.per_bucket``, and retiring into the new generation's
-    row would count queries against slots it never dispatched."""
+    row would count queries against slots it never dispatched.  The
+    stamps ``t_launch`` -> ``t_staged`` -> ``t_dispatched`` bound the stage
+    and dispatch spans."""
 
-    __slots__ = ("pin_cm", "eng", "gen", "key", "entries", "res",
-                 "t_launch", "bstats")
+    __slots__ = ("pin_cm", "eng", "gen", "key", "want_argmin", "entries",
+                 "res", "t_launch", "bstats", "reason", "t_staged",
+                 "t_dispatched")
 
-    def __init__(self, pin_cm, eng, gen, key, entries, res, t_launch,
-                 bstats):
+    def __init__(self, pin_cm, eng, gen, key, want_argmin, entries, res,
+                 t_launch, bstats, reason, t_staged, t_dispatched):
         self.pin_cm = pin_cm
         self.eng = eng
         self.gen = gen
         self.key = key
+        self.want_argmin = want_argmin
         self.entries = entries
         self.res = res
         self.t_launch = t_launch
         self.bstats = bstats
+        self.reason = reason            # flush reason (span attribute)
+        self.t_staged = t_staged
+        self.t_dispatched = t_dispatched
 
 
 class CoalescingBatcher:
@@ -222,6 +243,10 @@ class CoalescingBatcher:
         if n == 0:
             return ticket
         stats = self.server.stats
+        tel = self.server.telemetry
+        # head-sampling verdict, once per submit; traces are built at
+        # retire from the group's stamps (nothing allocated here)
+        sampled = tel.sampler.sample()
         with self.server.engine.pin() as eng:
             gen = eng.generation
             keys = eng.buckets_of(s, t)
@@ -232,6 +257,16 @@ class CoalescingBatcher:
             if self._queued + n > self.max_queue:
                 if self.policy == "shed":
                     stats.shed += n
+                    tel.events.emit("shed", n=n, queued=self._queued,
+                                    max_queue=self.max_queue)
+                    if sampled:
+                        tr = obs.Trace("async", n=n, argmin=want_argmin,
+                                       srv=stats.labels["srv"])
+                        tr.stage("admission", now - ticket.t_submit)
+                        for st in obs.ASYNC_STAGES:
+                            tr.stages.setdefault(st, 0.0)
+                        tel.spans.add(tr.close(ticket.t_submit, now,
+                                               outcome="shed"))
                     raise QueueFull(
                         f"queue at {self._queued}/{self.max_queue}; "
                         f"rejected {n} queries")
@@ -247,7 +282,7 @@ class CoalescingBatcher:
             for i in range(n):
                 k = int(keys[i])
                 self._groups.setdefault((gen, k, want_argmin), []).append(
-                    _Entry(ticket, i, s[i], t[i], now))
+                    _Entry(ticket, i, s[i], t[i], now, sampled=sampled))
                 self.server._bucket_stats(k, eng).admitted += 1
             self._queued += n
             stats.submitted += n
@@ -358,7 +393,7 @@ class CoalescingBatcher:
         eng = cm.__enter__()
         if eng.generation != gen:
             cm.__exit__(None, None, None)
-            self._requeue(entries, want_argmin)
+            self._requeue(entries, want_argmin, old_gen=gen)
             return None
         if eng.generation != stats.generation:
             # first dispatch of a new generation: per-bucket rows describe
@@ -375,8 +410,10 @@ class CoalescingBatcher:
             tb[i] = e.t
         t0 = time.perf_counter()
         staged = eng.stage(sb, tb, bucket=key)
+        t_staged = time.perf_counter()
         res = eng.dispatch_staged(staged, bucket=key,
                                   want_argmin=want_argmin)
+        t_dispatched = time.perf_counter()
         bstats = srv._bucket_stats(key, eng)
         bstats.batches += 1
         bstats.slots += rows
@@ -385,9 +422,11 @@ class CoalescingBatcher:
         elif reason == "deadline":
             bstats.deadline_flushes += 1
         stats.batches += 1
-        return _Flight(cm, eng, gen, key, entries, res, t0, bstats)
+        return _Flight(cm, eng, gen, key, want_argmin, entries, res, t0,
+                       bstats, reason, t_staged, t_dispatched)
 
-    def _requeue(self, entries: list, want_argmin: bool) -> None:
+    def _requeue(self, entries: list, want_argmin: bool,
+                 old_gen: int = -1) -> None:
         """Re-route a superseded chunk: recompute keys under the live
         generation and put the entries back with their original arrival
         times (deadlines keep counting from first admission)."""
@@ -407,19 +446,34 @@ class CoalescingBatcher:
             srv.stats.requeued_batches += 1
             srv.stats.queue_depth = self._queued
             self._cond.notify_all()
+        srv.telemetry.events.emit("requeue", n=len(entries),
+                                  from_gen=old_gen, to_gen=gen)
 
     def _retire(self, f: _Flight) -> None:
-        """Wait for one in-flight group, scatter its results into tickets,
-        close out stats, release the generation pin."""
+        """Wait for one in-flight group, close out its stats, then scatter
+        its results into tickets and release the generation pin.
+
+        The stats come first: a caller woken by its ticket must find its
+        queries counted in the bucket's and the server's rows."""
         srv = self.server
         stats = srv.stats
         try:
-            outs = f.res.wait()
-            dt = time.perf_counter() - f.t_launch
+            t_retire = time.perf_counter()
+            outs = f.res.wait()             # the one sync (device_join)
+            t_joined = time.perf_counter()
+            dt = t_joined - f.t_launch
             n = len(f.entries)
             outs = [o[:n] for o in outs]
+            f.bstats.queries += n
+            f.bstats.seconds += dt
+            stats.queries += n
+            stats.seconds += dt
+            if srv.engine.generation != f.gen:
+                # a swap published while this group was in flight: it
+                # finished on its pinned (now superseded) artifact
+                stats.stale_batches += 1
             # per-shard attribution of a sharded engine (its home shard's
-            # seconds), before the tickets complete
+            # seconds)
             note = getattr(f.eng, "note_batch_seconds", None)
             if note is not None:
                 note(f.key, dt)
@@ -427,8 +481,6 @@ class CoalescingBatcher:
             if shard_stats is not None:
                 stats.per_shard = shard_stats()
             if srv._recorder is not None:
-                # recorded before the tickets complete, so a caller that
-                # holds its results also sees them in the workload
                 srv._recorder.record(np.stack([e.s for e in f.entries]),
                                      np.stack([e.t for e in f.entries]))
             per_ticket: dict = collections.defaultdict(lambda: ([], []))
@@ -439,16 +491,57 @@ class CoalescingBatcher:
             for ticket, (rows, slots) in per_ticket.items():
                 ridx = np.asarray(rows)
                 ticket._write(np.asarray(slots), [o[ridx] for o in outs])
-            f.bstats.queries += n
-            f.bstats.seconds += dt
-            stats.queries += n
-            stats.seconds += dt
-            if srv.engine.generation != f.gen:
-                # a swap published while this group was in flight: it
-                # finished on its pinned (now superseded) artifact
-                stats.stale_batches += 1
+            t_reply = time.perf_counter()
+            self._observe(f, per_ticket, t_retire, t_joined, t_reply)
         finally:
             f.pin_cm.__exit__(None, None, None)
             with self._cond:
                 self._in_flight -= len(f.entries)
                 self._cond.notify_all()
+
+    # -------------------------------------------------------------- observe
+    def _observe(self, f: _Flight, per_ticket: dict, t_retire: float,
+                 t_joined: float, t_reply: float) -> None:
+        """Record per-stage histograms and build span trees.
+
+        Every stage boundary is a stamp the loop already took for its own
+        accounting, so a request's stage durations *telescope*: their sum
+        is ``t_reply - ticket.t_submit`` exactly.  Traces are built only
+        for head-sampled tickets, or for requests over the slow threshold
+        (every stamp survives in the flight)."""
+        tel = self.server.telemetry
+        reg = tel.registry
+        lbl = self.server.stats.labels
+        stages = (("queue_wait", f.t_launch - f.entries[0].arrived),
+                  ("stage", f.t_staged - f.t_launch),
+                  ("dispatch", f.t_dispatched - f.t_staged),
+                  ("pipeline_wait", t_retire - f.t_dispatched),
+                  ("device_join", t_joined - t_retire),
+                  ("reply", t_reply - t_joined))
+        for name, dur in stages:
+            reg.histogram("stage_ms", stage=name,
+                          **lbl).record(max(0.0, dur) * 1e3)
+        lat = reg.histogram("request_latency_ms", **lbl)
+        lat.record_many([(t_reply - t.t_submit) * 1e3 for t in per_ticket])
+        if not (tel.sampler.rate > 0.0 or tel.sampler.slow_ms > 0.0):
+            return
+        for ticket, (rows, _) in per_ticket.items():
+            e2e = t_reply - ticket.t_submit
+            ents = [f.entries[i] for i in rows]
+            if not (ents[0].sampled or tel.sampler.slow(e2e)):
+                continue
+            tr = obs.Trace("async", key=f.key, generation=f.gen,
+                           flush=f.reason, n=len(ents),
+                           argmin=f.want_argmin, srv=lbl["srv"],
+                           requeues=max(e.requeues for e in ents))
+            # admission: submit entry -> admitted; queue_wait from there
+            tr.stage("admission", ents[0].arrived - ticket.t_submit)
+            tr.stage("queue_wait", f.t_launch - ents[0].arrived)
+            for name, dur in stages[1:]:
+                tr.stage(name, dur)
+            # the rescue runs inside dispatch (engine-side series cover
+            # it); unwind happens only on the sync query_paths span:
+            # explicit zeros keep the tree complete
+            tr.stage("rescue", 0.0)
+            tr.stage("unwind", 0.0)
+            tel.spans.add(tr.close(ticket.t_submit, t_reply))

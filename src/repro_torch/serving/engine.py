@@ -10,33 +10,51 @@ observable.  ``start_async``/``submit``/``flush``/``drain``/``stop_async``
 front the same engine with the continuous batcher (``serving.batcher``).
 A ``recorder`` (``indexing.WorkloadRecorder``) is fed every answered
 query, synchronous or through the batcher, for adaptive re-indexing.
+
+The stats (``ServeStats``/``BucketStats``) are views over the metrics
+registry of the server's ``telemetry`` (DESIGN.md §12), and head-sampled
+requests leave span trees in its trace ring: ``SYNC_STAGES`` for
+``query``/``query_paths``, ``ASYNC_STAGES`` through the batcher.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.packed import empty_results
 from repro_torch.core.query import path_length, unwind_path
 from repro_torch.serving.query_engine import HostEngine, QueryEngine, make_engine
 
 
-@dataclasses.dataclass
-class BucketStats:
-    """Per-dispatch-bucket serving counters (width = label slots paid)."""
+class BucketStats(obs.StatsView):
+    """Per-dispatch-bucket serving counters (width = label slots paid).
 
-    width: int = 0
-    batches: int = 0
-    queries: int = 0
-    seconds: float = 0.0
-    slots: int = 0          # batch slots dispatched (incl. tail padding)
-    # continuous batching: admission + flush mix
-    admitted: int = 0
-    full_flushes: int = 0
-    deadline_flushes: int = 0
+    Registry-backed view (DESIGN.md §12): every counter is a labeled
+    series in the metrics registry, so the Prometheus export and this
+    object read the same storage.  Rows are generation-tagged (``gen``
+    label): a hot-swap's per-bucket reset starts fresh series while the
+    retired generation's stay frozen in the registry.
+    """
+
+    _COUNTERS = {
+        "batches": ("bucket_batches_total", int),
+        "queries": ("bucket_queries_total", int),
+        "seconds": ("bucket_seconds_total", float),
+        # batch slots dispatched (incl. tail padding)
+        "slots": ("bucket_slots_total", int),
+        # continuous batching (serving.batcher): admission + flush mix
+        "admitted": ("bucket_admitted_total", int),
+        "full_flushes": ("bucket_full_flushes_total", int),
+        "deadline_flushes": ("bucket_deadline_flushes_total", int),
+    }
+
+    def __init__(self, width: int = 0, registry=None, labels=None):
+        self.width = int(width)
+        self._bind(registry, labels, row_prefix="b")
+        self.registry.gauge("bucket_width", **self.labels).set(width)
 
     @property
     def occupancy(self) -> float:
@@ -48,33 +66,43 @@ class BucketStats:
         return 1e6 * self.seconds / max(1, self.queries)
 
 
-@dataclasses.dataclass
-class ServeStats:
-    """Server-level counters."""
+class ServeStats(obs.StatsView):
+    """Server-level counters: a registry-backed view (DESIGN.md §12), one
+    unique ``srv`` row per server instance."""
 
-    batches: int = 0
-    queries: int = 0
-    seconds: float = 0.0
-    per_bucket: dict = dataclasses.field(default_factory=dict)
-    # generation changes observed / batches finished on a superseded one;
-    # per_bucket restarts whenever a new generation is first served
-    swaps: int = 0
-    stale_batches: int = 0
-    generation: int = 0
-    # continuous batching (serving.batcher): admission, queue, flush mix
-    submitted: int = 0
-    shed: int = 0
-    admission_waits: int = 0
-    full_flushes: int = 0
-    deadline_flushes: int = 0
-    forced_flushes: int = 0
-    requeued_batches: int = 0
-    queue_depth: int = 0
-    queue_depth_peak: int = 0
-    pipeline_peak: int = 0
-    # sharded serving (repro_torch.sharding): the engine's per-shard
-    # ShardStats rows, refreshed after every request and retired batch
-    per_shard: list = dataclasses.field(default_factory=list)
+    _COUNTERS = {
+        "batches": ("serve_batches_total", int),
+        "queries": ("serve_queries_total", int),
+        "seconds": ("serve_seconds_total", float),
+        # generation changes observed / batches finished on a superseded one
+        "swaps": ("serve_swaps_total", int),
+        "stale_batches": ("serve_stale_batches_total", int),
+        # continuous batching (serving.batcher): admission, queue, flush mix
+        "submitted": ("serve_submitted_total", int),
+        "shed": ("serve_shed_total", int),
+        "admission_waits": ("serve_admission_waits_total", int),
+        "full_flushes": ("serve_full_flushes_total", int),
+        "deadline_flushes": ("serve_deadline_flushes_total", int),
+        "forced_flushes": ("serve_forced_flushes_total", int),
+        "requeued_batches": ("serve_requeued_batches_total", int),
+    }
+    _GAUGES = {
+        # generation the last request was served on; per_bucket restarts
+        # whenever a new generation is first served
+        "generation": ("serve_generation", int),
+        "queue_depth": ("serve_queue_depth", int),
+        "queue_depth_peak": ("serve_queue_depth_peak", int),
+        "pipeline_peak": ("serve_pipeline_peak", int),
+    }
+
+    def __init__(self, registry=None, labels=None):
+        lbl = dict(labels or {})
+        lbl.setdefault("srv", obs.next_instance_id("s"))
+        self._bind(registry, lbl, row_prefix="s")
+        self.per_bucket: dict = {}
+        # sharded serving (repro_torch.sharding): the engine's per-shard
+        # ShardStats rows, refreshed after every request and retired batch
+        self.per_shard: list = []
 
     @property
     def us_per_query(self) -> float:
@@ -105,17 +133,23 @@ class PathServer:
     PackedIndex or BucketedIndex, or a host EHLIndex (packed bucketed onto
     ``device``); all but the first are wrapped in a ``backend`` engine
     (``make_engine``).  ``recorder``: a workload recorder (``record(s, t)``)
-    that every answered query is folded into.
+    that every answered query is folded into.  ``telemetry``: spans,
+    events and the registry the stats views bind to; the default is
+    head-sampled tracing over the process-wide registry, and
+    ``obs.Telemetry.off()`` disables spans and events (the registry stays
+    on: it *is* the stats).
     """
 
     def __init__(self, index, batch_size: int = 256, backend: str = "cuda",
-                 device="cuda", recorder=None):
+                 device="cuda", recorder=None, telemetry=None):
         if isinstance(index, QueryEngine):
             self.engine = index
         else:
             self.engine = make_engine(index, backend=backend, device=device)
         self.batch_size = batch_size
-        self.stats = ServeStats()
+        self.telemetry = obs.Telemetry() if telemetry is None else telemetry
+        self.stats = ServeStats(registry=self.telemetry.registry)
+        self.engine.bind_telemetry(self.telemetry)
         self._recorder = recorder
         self._batcher = None        # continuous batching: start_async()
 
@@ -171,17 +205,20 @@ class PathServer:
         if bucket not in self.stats.per_bucket:
             eng = self.engine if eng is None else eng
             self.stats.per_bucket[bucket] = BucketStats(
-                width=eng.bucket_width(bucket))
+                width=eng.bucket_width(bucket), registry=self.stats.registry,
+                labels={"srv": self.stats.labels["srv"], "bucket": bucket,
+                        "gen": eng.generation})
         return self.stats.per_bucket[bucket]
 
-    def _dispatch(self, s, t, want_argmin: bool):
+    def _dispatch(self, s, t, want_argmin: bool, trace=None):
         """Bucket-route N requests through fixed-shape batches; scatter back.
 
         Sort by dispatch bucket, answer each bucket's sub-batches at that
         bucket's width, write results back through the permutation.
         Returns a list of [N]-arrays (1 for distances, 5 for argmin).  The
         engine is pinned for the whole request, so routing and every batch
-        resolve against one artifact generation.
+        resolve against one artifact generation.  A sampled ``trace``
+        gets the ``route`` and ``dispatch`` stages.
         """
         n = len(s)
         bs = self.batch_size
@@ -193,7 +230,9 @@ class PathServer:
                 self.stats.swaps += max(0, gen0 - self.stats.generation)
                 self.stats.per_bucket = {}
             pad = eng.static_shapes
+            t_route = time.perf_counter()
             buckets = eng.buckets_of(s, t) if n else np.zeros(0, np.int32)
+            t_batches = time.perf_counter()
             outs = empty_results(n, want_argmin)
             for k in np.unique(buckets):
                 idxs = np.nonzero(buckets == k)[0]
@@ -219,6 +258,10 @@ class PathServer:
                     self.stats.batches += 1
                 bstats.queries += len(idxs)
                 bstats.seconds += time.perf_counter() - tb0
+            if trace is not None:
+                trace.stage("route", t_batches - t_route)
+                trace.stage("dispatch", time.perf_counter() - t_batches)
+                trace.attrs["generation"] = gen0
             shard_stats = getattr(eng, "shard_stats", None)
             if shard_stats is not None:
                 self.stats.per_shard = shard_stats()
@@ -230,13 +273,45 @@ class PathServer:
             self._recorder.record(s, t)
         return outs
 
+    def _sync_trace(self, n: int, argmin: bool):
+        """Head-sample a sync-path trace (None = not sampled)."""
+        if not self.telemetry.sampler.sample():
+            return None
+        return obs.Trace("sync", n=n, argmin=argmin,
+                         srv=self.stats.labels["srv"])
+
+    def _close_sync(self, trace, t0: float, t1: float) -> None:
+        """Close a sync span tree: fill missing stages with 0 and let
+        ``reply`` take the unattributed remainder (scatter and stats
+        bookkeeping), so the stage sum telescopes to e2e exactly."""
+        tel = self.telemetry
+        e2e = t1 - t0
+        tel.registry.histogram("sync_batch_ms",
+                               **self.stats.labels).record(e2e * 1e3)
+        if trace is None:
+            if not tel.sampler.slow(e2e):
+                return
+            # slow-path override without head sampling: a coarse trace
+            # (no per-stage stamps were taken) still lands in the ring
+            trace = obs.Trace("sync", coarse=True, n=0,
+                              srv=self.stats.labels["srv"])
+            trace.stage("dispatch", e2e)
+        for st in obs.SYNC_STAGES:
+            trace.stages.setdefault(st, 0.0)
+        trace.stage("reply", max(0.0, e2e - trace.stage_sum))
+        tel.spans.add(trace.close(t0, t1))
+
     def query(self, s: np.ndarray, t: np.ndarray) -> np.ndarray:
         """Answer N distance requests (any N), bucket-routed."""
         t0 = time.perf_counter()
+        trace = self._sync_trace(len(s), argmin=False)
         out = self._dispatch(np.asarray(s, np.float32),
-                             np.asarray(t, np.float32), want_argmin=False)[0]
-        self.stats.seconds += time.perf_counter() - t0
+                             np.asarray(t, np.float32), want_argmin=False,
+                             trace=trace)[0]
+        t1 = time.perf_counter()
+        self.stats.seconds += t1 - t0
         self.stats.queries += len(out)
+        self._close_sync(trace, t0, t1)
         return out
 
     def query_paths(self, s: np.ndarray, t: np.ndarray, host_index=None
@@ -250,29 +325,37 @@ class PathServer:
         """
         s = np.asarray(s, np.float32)
         t = np.asarray(t, np.float32)
-        t0 = time.perf_counter()
         if isinstance(self.engine, HostEngine):
+            t0 = time.perf_counter()
             paths = self.engine.paths(s, t)
             d = np.array([path_length(p) for p in paths], dtype=np.float32)
+            self.stats.seconds += time.perf_counter() - t0
+            self.stats.queries += len(s)
             if self._recorder is not None and len(s):
                 self._recorder.record(s, t)
-        else:
-            if host_index is None:
-                raise ValueError("query_paths on a device engine needs the "
-                                 "host EHLIndex for label unwinding")
-            d, covis, via_s, hub, via_t = self._dispatch(s, t,
-                                                         want_argmin=True)
-            paths = []
-            for i in range(len(s)):
-                if covis[i]:
-                    paths.append([s[i].astype(np.float64),
-                                  t[i].astype(np.float64)])
-                elif not np.isfinite(d[i]):
-                    paths.append([])
-                else:
-                    paths.append(unwind_path(host_index, s[i], t[i],
-                                             int(via_s[i]), int(hub[i]),
-                                             int(via_t[i])))
-        self.stats.seconds += time.perf_counter() - t0
+            return d, paths
+        if host_index is None:
+            raise ValueError("query_paths on a device engine needs the host "
+                             "EHLIndex for label unwinding")
+        t0 = time.perf_counter()
+        trace = self._sync_trace(len(s), argmin=True)
+        d, covis, via_s, hub, via_t = self._dispatch(s, t, want_argmin=True,
+                                                     trace=trace)
+        t_unwind = time.perf_counter()
+        paths = []
+        for i in range(len(s)):
+            if covis[i]:
+                paths.append([s[i].astype(np.float64), t[i].astype(np.float64)])
+            elif not np.isfinite(d[i]):
+                paths.append([])
+            else:
+                paths.append(unwind_path(host_index, s[i], t[i],
+                                         int(via_s[i]), int(hub[i]),
+                                         int(via_t[i])))
+        t1 = time.perf_counter()
+        if trace is not None:
+            trace.stage("unwind", t1 - t_unwind)
+        self.stats.seconds += t1 - t0
         self.stats.queries += len(s)
+        self._close_sync(trace, t0, t1)
         return d, paths

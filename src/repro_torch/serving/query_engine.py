@@ -33,11 +33,11 @@ from __future__ import annotations
 
 import abc
 import contextlib
-import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.grid import EHLIndex
 from repro_torch.core.packed import (LAYOUT_F32, TRACES, BucketedIndex,
                                      PackedIndex, gather_masked_exact,
@@ -96,6 +96,10 @@ class QueryEngine(abc.ABC):
         yield themselves.
         """
         yield self
+
+    def bind_telemetry(self, telemetry) -> None:
+        """Attach the serving telemetry (``PathServer`` binds its own).
+        Engines that emit no events of their own ignore it."""
 
     def buckets_of(self, s, t) -> np.ndarray:
         """[B] dispatch bucket per query (0 for single-bucket engines)."""
@@ -184,7 +188,9 @@ class DeviceEngine(QueryEngine):
 
     ``rescue_batches``/``rescue_rows``/``rescue_seconds`` count the argmin
     batches a quantized artifact rescued, the ambiguous rows in them and
-    the host seconds the rescues took.
+    the host seconds the rescues took; each rescue also lands on
+    ``rescue_batches_total{engine=}`` and ``rescue_ms{engine=}`` in the
+    process-wide registry (the span sees the rescue inside ``dispatch``).
 
     On a CUDA artifact the split-phase path stages through a pool of
     pinned slots per batch shape (a slot is reused only once its results
@@ -267,13 +273,16 @@ class DeviceEngine(QueryEngine):
 
     def _rescue(self, res, amb: np.ndarray, s, t, bucket: int) -> tuple:
         """Splice the exact answers of the ambiguous rows into ``res``."""
-        t0 = time.perf_counter()
-        exact = rescue_exact(self.index, s, t, self.bucket_width(bucket),
-                             res[1], use_kernels=self.use_kernels)
-        out = splice_rescue((*res[:5], amb), exact)
-        self.rescue_seconds += time.perf_counter() - t0
+        with obs.Stopwatch() as sw:
+            exact = rescue_exact(self.index, s, t, self.bucket_width(bucket),
+                                 res[1], use_kernels=self.use_kernels)
+            out = splice_rescue((*res[:5], amb), exact)
+        self.rescue_seconds += sw.seconds
         self.rescue_batches += 1
         self.rescue_rows += int(np.count_nonzero(amb))
+        obs.REGISTRY.counter("rescue_batches_total", engine=self.name).inc()
+        obs.REGISTRY.histogram("rescue_ms", engine=self.name).record(
+            sw.seconds * 1e3)
         return out
 
     # -------------------------------------------- split-phase (async) path

@@ -21,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.grid import EHLIndex
 from repro_torch.core.packed import LAYOUT_F32, empty_results, splice_rescue
 from repro_torch.launch.mesh import shard_devices
@@ -31,25 +32,42 @@ from repro_torch.serving.shard_router import ShardRouter
 from .planner import ShardedIndex, ShardPlanner
 
 
-class ShardStats:
-    """Per-shard serving and occupancy counters (``ServeStats.per_shard``):
-    plain counters, as the port's ``BucketStats`` are."""
+class ShardStats(obs.StatsView):
+    """Per-shard serving and occupancy counters (``ServeStats.per_shard``).
+
+    Registry-backed view (DESIGN.md §12): the traffic counters are labeled
+    series keyed by engine instance and shard, so per-shard series appear
+    in the Prometheus export; the artifact's shape lands on gauges."""
+
+    _COUNTERS = {
+        "batches": ("shard_batches_total", int),   # sub-batches joined here
+        # query slots dispatched here (incl. padding)
+        "slots": ("shard_slots_total", int),
+        "seconds": ("shard_seconds_total", float),
+        # label rows gathered here for another shard
+        "gathers_out": ("shard_gathers_out_total", int),
+        # covis verdicts computed here for another shard's join
+        # (distributed s->t visibility over clipped edges, §10)
+        "covis_assists": ("shard_covis_assists_total", int),
+    }
 
     def __init__(self, shard: int, device: str, regions: int,
-                 device_bytes: int, used_slots: int, total_slots: int):
+                 device_bytes: int, used_slots: int, total_slots: int,
+                 registry=None, labels=None):
         self.shard = shard
         self.device = device
         self.regions = regions
         self.device_bytes = device_bytes
         self.used_slots = used_slots    # label slots holding real labels
         self.total_slots = total_slots  # label slots allocated (slab area)
-        self.batches = 0        # sub-batches joined here
-        self.slots = 0          # query slots dispatched here (incl. padding)
-        self.seconds = 0.0
-        self.gathers_out = 0    # label rows gathered here for another shard
-        # covis verdicts computed here for another shard's join
-        # (distributed s->t visibility over clipped edges, §10)
-        self.covis_assists = 0
+        lbl = dict(labels or {})
+        lbl.setdefault("shard", shard)
+        self._bind(registry, lbl, row_prefix="sh")
+        for name, v in (("shard_regions", regions),
+                        ("shard_device_bytes", device_bytes),
+                        ("shard_used_slots", used_slots),
+                        ("shard_total_slots", total_slots)):
+            self.registry.gauge(name, **self.labels).set(v)
 
     @property
     def occupancy(self) -> float:
@@ -113,17 +131,21 @@ class ShardedQueryEngine(QueryEngine):
         self.rescue_batches = 0
         self.rescue_rows = 0
         self.rescue_seconds = 0.0
-        self._telemetry = None      # bound by IndexManager
+        self._telemetry = None      # bound by PathServer / IndexManager
+        eng_id = obs.next_instance_id("e")
         self._stats = [
             ShardStats(shard=k, device=str(bx.device),
                        regions=bx.num_regions,
                        device_bytes=bx.device_bytes(),
                        used_slots=bx.label_slots()[0],
-                       total_slots=bx.label_slots()[1])
+                       total_slots=bx.label_slots()[1],
+                       labels={"eng": eng_id, "shard": k})
             for k, bx in enumerate(index.shards)]
 
     def bind_telemetry(self, telemetry) -> None:
-        """Attach an event sink (cross-shard covis-assist events)."""
+        """Attach an event sink (cross-shard covis-assist events); the
+        per-shard series live in the process-wide registry, exported
+        without binding."""
         self._telemetry = telemetry
 
     # ------------------------------------------------- QueryEngine protocol
@@ -258,7 +280,7 @@ class ShardedQueryEngine(QueryEngine):
         self.router.warmup(batch_size, want_argmin=want_argmin)
         if not self.router.on_card:
             return
-        traffic = [dict(vars(st)) for st in self._stats]
+        traffic = [st.counters() for st in self._stats]
         z = np.zeros((batch_size, 2), np.float32)
         nw = len(self.index.width_classes)
         for k in range(self.index.num_shards):
@@ -270,7 +292,8 @@ class ShardedQueryEngine(QueryEngine):
                 for p in pending:
                     p.wait()
         for st, before in zip(self._stats, traffic):  # warmup is no traffic
-            vars(st).update(before)
+            for field, v in before.items():
+                setattr(st, field, v)
 
     def device_bytes(self) -> int:
         """Total across the devices; ``per_shard_bytes`` has each one's."""

@@ -437,6 +437,31 @@ def test_slab_cell3_location_on_card_equals_host(card):
     np.testing.assert_array_equal(got, res.locate(pts))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,l", [(1, 16), (33, 384), (256, 512)])
+def test_label_join_kernel_equals_twin(card, b, l, dtype):
+    """The ``label_join`` entry (the row-join kernel, then ``torch.amin``)
+    equals ``label_join_ref`` bit for bit, and counts its launches."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(b * 31 + l)
+    hs = np.sort(rng.integers(0, 64, (b, l)).astype(np.int32), axis=1)
+    ht = np.sort(rng.integers(0, 64, (b, l)).astype(np.int32), axis=1)
+    vs = rng.uniform(0, 100, (b, l)).astype(np.float32)
+    vt = rng.uniform(0, 100, (b, l)).astype(np.float32)
+    vs[rng.random((b, l)) < 0.2] = np.inf
+    vt[rng.random((b, l)) < 0.2] = np.inf
+    args = [torch.from_numpy(hs).to(card), torch.from_numpy(vs).to(card, dtype),
+            torch.from_numpy(ht).to(card), torch.from_numpy(vt).to(card, dtype)]
+    before = ops.label_join_kernel.launches
+    got = ops.label_join_kernel(*args)
+    torch.cuda.synchronize()
+    assert ops.label_join_kernel.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b,)
+    assert torch.equal(got, ref.label_join_ref(*args))
+
+
 # ---------------------------------------------------------------------------
 # the single slab, the split-phase path and the warmup check on the card
 # ---------------------------------------------------------------------------
@@ -512,26 +537,70 @@ def test_async_equals_sync_on_card(card, rooms_s, kind, argmin):
                                          ("bf16", False), ("f32-slab", True)])
 def test_dispatch_staged_never_syncs(card, rooms_s, kind, argmin):
     """``dispatch_staged`` issues its batch without one host
-    synchronisation (PyTorch's sync debug mode raises on any), and the
-    results equal the synchronous call's."""
-    from repro_torch.serving import CudaEngine
+    synchronisation (PyTorch's sync debug mode raises on any), behind a
+    server that samples every request and with the profile capture timing
+    every entry by CUDA events, and the results equal the synchronous
+    call's."""
+    from repro_torch import obs
+    from repro_torch.serving import CudaEngine, PathServer
 
     idx, s, t = rooms_s
     eng = CudaEngine(_artifact(idx, kind, card))
+    reg = obs.MetricsRegistry()
+    PathServer(eng, batch_size=64,
+               telemetry=obs.Telemetry(registry=reg, sample_rate=1.0))
     eng.warmup(64, want_argmin=argmin)
     sb, tb = s[:64], t[:64]
     bucket = int(eng.buckets_of(sb, tb).max())
-    staged = eng.stage(sb, tb, bucket)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        pending = eng.dispatch_staged(staged, bucket, want_argmin=argmin)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    with obs.profiled(registry=reg, timing=True) as cap:
+        staged = eng.stage(sb, tb, bucket)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = eng.dispatch_staged(staged, bucket,
+                                          want_argmin=argmin)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert cap.records == []                # nothing cold after warmup
     got = pending.wait()
+    assert cap.drain() > 0
     want = eng.batch_argmin(sb, tb, bucket) if argmin \
         else (eng.batch(sb, tb, bucket),)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(w, g)
+
+
+def test_profile_times_entries_off_the_hot_path(card, rooms_s):
+    """With ``timing=True`` every entry call on the card queues a pair of
+    CUDA events; ``entry_stream_ms`` appears only once ``drain`` resolves
+    them, one sample per call, and the kernel launches add their analytic
+    costs (``kernel_cost_*_total``)."""
+    from repro_torch import obs
+    from repro_torch.serving import CudaEngine, PathServer
+
+    idx, s, t = rooms_s
+    reg = obs.MetricsRegistry()
+    srv = PathServer(CudaEngine(_artifact(idx, "f32", card)), batch_size=64,
+                     telemetry=obs.Telemetry(registry=reg, sample_rate=1.0))
+    srv.warmup(paths=True)
+    with obs.profiled(registry=reg, timing=True) as cap:
+        srv.query(s, t)
+        assert not reg.series("entry_stream_ms")        # queued, unread
+        resolved = cap.drain()
+    torch.cuda.synchronize()
+    hist = {dict(h.labels)["entry"]: h for h in reg.series("entry_stream_ms")}
+    assert set(hist) == {"fold_endpoint", "join_endpoints"}
+    assert sum(h.count for h in hist.values()) == resolved
+    assert hist["fold_endpoint"].count == 2 * hist["join_endpoints"].count
+    assert all(h.min >= 0 and h.max > 0 for h in hist.values())
+    summ = cap.summary()
+    assert summ["fold_endpoint"]["stream_calls"] == \
+        hist["fold_endpoint"].count
+    ops_ = {dict(m.labels)["kernel"]: m.value
+            for m in reg.series("kernel_cost_ops_total")}
+    assert set(ops_) == {"segvis", "label_join_rowmin"}
+    assert all(v > 0 for v in ops_.values())
+    (tr, *_) = srv.telemetry.spans.traces("sync")
+    assert tr.complete(obs.SYNC_STAGES)
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "f32-slab"])
