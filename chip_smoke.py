@@ -93,6 +93,27 @@ count before and after):
   operands (a clipped fold, a covis batch, a home-shard join, a
   clipped-grid tile chunk) join the kernel-versus-twin checks.
 
+Then two LM paths (``repro_torch.models``, plain PyTorch: they launch none
+of the kernels, and their counts, set to 0 before each, must stay 0):
+
+* tinyllama-1.1b at its published width (22 layers, d_model 2048, 32
+  heads, 4 kv heads, d_ff 5632, vocab 32000), random init from a seeded
+  generator on the card: in float32 (TF32 off) stepped decode equals
+  forward at B=2, S=32 (rtol 2e-3, atol 2e-4, the reference's decode
+  test) and the card's forward the CPU's at B=1, S=8 (rtol 1e-4, atol
+  1e-4); then the bf16 ``LMServer`` at B = 1, 8 and 32 (a 64-token prompt
+  stepped into a 256-slot cache, then ``generate(64)`` three times from
+  that cache): ms per decode step (median of 3), tokens/s,
+  ``max_memory_allocated``, one profiled step (device ms, device ops,
+  idle share), the step's bytes over the HBM rate (``lm_step_bytes``) and
+  how often the first token's top-1 equals the f32 model's (printed, not
+  gated); tokens in range and ``queries == B·64`` gated;
+* the ten architectures' ``reduced()`` configs: forward on the card equals
+  the CPU's on the same parameters (rtol 1e-4, atol 1e-5 times the larger
+  of 1 and the logits' largest magnitude), and for the six decode
+  representatives stepped decode equals forward on the card (rtol 2e-3,
+  atol 2e-4).
+
 Before the adaptive path, the f16 layout is checked once (answers only),
 and a fresh rooms-M build is merged to 0.6x the f32 artifact's device
 bytes under the bf16 layout (``compress_to_device_budget``) and served.  ``label_join_rowmin``
@@ -181,6 +202,16 @@ SHARD_BYTES_BF16 = (183232, 184336, 184288, 219664)
 # swapping under load (Cluster-2 traffic, seed 31)
 ACCEPT_SEED, ACCEPT_BUDGET, ACCEPT_QUERIES, ACCEPT_BATCH = 1, 0.3, 1000, 64
 ACCEPT_BYTES = (160744, 160728, 160744, 191536)
+# the LM paths (repro_torch.models): tinyllama-1.1b at its published width
+# (f32 decode == forward at the reference test's tolerance, then card ==
+# CPU at B=1, S=8), the bf16 LMServer (a 64-token prompt stepped into a
+# 256-slot cache, then 64 greedy tokens, 3 passes at each batch), and the
+# ten architectures' reduced configs
+LM_ARCH, LM_SEED = "tinyllama-1.1b", 7
+LM_MAX_LEN, LM_PROMPT, LM_NEW, LM_PASSES = 256, 64, 64, 3
+LM_BATCHES = (1, 8, 32)
+LM_DECODE_ARCHS = ("tinyllama-1.1b", "deepseek-v3-671b", "gemma2-27b",
+                   "mamba2-780m", "hymba-1.5b", "whisper-large-v3")
 
 
 def card_line() -> str:
@@ -2039,6 +2070,288 @@ def sharded_acceptance(kernels, twins, dev, by_path: dict) -> None:
           + ", ".join(f"{k} {v}" for k, v in launches.items()))
 
 
+def _leaves(tree):
+    """The tensors of a nested dict."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def lm_step_bytes(cfg, params: dict, B: int, max_len: int,
+                  cache_elem: int) -> dict:
+    """Bytes one greedy decode step must move: every parameter the step
+    reads once (an untied embedding table only its B gathered rows; the
+    MTP head and the encoder not at all), the attention cache's slabs read
+    once (every slot of max_len: the step masks, it does not skip), the
+    float32 logits written once."""
+    emb = params["embed"]
+    read = {k: v for k, v in params.items()
+            if k not in ("mtp_proj", "mtp_block", "encoder")}
+    if not cfg.tie_embeddings:
+        read.pop("embed")
+    weights = sum(t.numel() * t.element_size() for t in _leaves(read))
+    gather = 0 if cfg.tie_embeddings else B * cfg.d_model * \
+        emb.element_size()
+    kv = 0
+    if cfg.attn == "gqa":
+        kv = cfg.n_layers * 2 * B * max_len * cfg.n_kv_heads * \
+            cfg.head_dim * cache_elem
+    logits = B * cfg.vocab * 4
+    return {"weights": weights, "gather": gather, "cache": kv,
+            "logits": logits, "total": weights + gather + kv + logits}
+
+
+def lm_close(got, want, rtol: float, atol: float) -> bool:
+    """allclose with atol scaled by the larger of 1 and want's largest
+    magnitude: a float32 logit is a sum of products whose rounding is
+    relative to the terms, not to the sum (the CPU parity tests' rule)."""
+    import torch
+
+    scale = max(1.0, float(want.abs().max()))
+    return torch.allclose(got, want, rtol=rtol, atol=atol * scale)
+
+
+def lm_kernel_launches(kernels: dict, label: str, by_path: dict) -> None:
+    """The LM path launches none of the EHL kernels: record its counts
+    (set to 0 just before the path) and require them all 0."""
+    launches = {n: k.launches for n, k in kernels.items()}
+    by_path[label] = launches
+    require(not any(launches.values()),
+            f"the {label} path launched an EHL kernel: {launches}")
+    print(f"launches: {label}: " + ", ".join(
+        f"{n} {c}" for n, c in launches.items()))
+
+
+def full_f32_matmuls() -> None:
+    """float32 matmuls in full precision for every f32 check (no TF32)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "TF32 is on for float32 matmuls")
+
+
+def lm_full_width(dev, kernels: dict, by_path: dict) -> None:
+    """tinyllama-1.1b at its published width through the port's LM path:
+    f32 decode == forward (B=2, S=32; the reference test's rtol 2e-3, atol
+    2e-4), the card == the CPU (B=1, S=8; rtol 1e-4, atol 1e-4), then the
+    bf16 LMServer at each batch of LM_BATCHES: ms per decode step (median
+    of LM_PASSES passes of LM_NEW tokens after a stepped LM_PROMPT-token
+    prompt), tokens/s, peak memory, one profiled step (device ms, device
+    ops, idle share) and the step's bytes over the HBM rate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import LMServer
+
+    full_f32_matmuls()
+    cfg = get_config(LM_ARCH)
+    label = f"{LM_ARCH} LM"
+    print(f"path: {label} (full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"random init, seed {LM_SEED})")
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    p32 = T.init_params(cfg, gen, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(p32))
+    print(f"lm: init f32 on the card {time.perf_counter() - t0:.3f} s, "
+          f"{n_params} parameters, {4 * n_params} bytes")
+    rng = np.random.default_rng(LM_SEED)
+
+    # f32: stepped decode == forward (the reference's decode test)
+    B, S = 2, 32
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
+    with torch.no_grad():
+        full = T.forward(cfg, p32, toks)
+        cache = T.init_cache(cfg, B, S, dtype=torch.float32, device=dev)
+        outs = []
+        for i in range(S):
+            lg, cache = T.decode_step(cfg, p32, cache, toks[:, i:i + 1])
+            outs.append(lg)
+        dec = torch.cat(outs, dim=1)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(full).all()) and full.shape == (B, S,
+                                                                cfg.vocab),
+            "f32 forward logits not finite or of the wrong shape")
+    require(torch.allclose(dec, full, rtol=2e-3, atol=2e-4),
+            f"f32 decode != forward: max abs {max_abs_err(dec, full)}")
+    print(f"check: {label} f32 decode == forward at B={B}, S={S} (rtol "
+          f"2e-3, atol 2e-4): max abs err {max_abs_err(dec, full):.3e}, "
+          f"logits up to {float(full.abs().max()):.3f}")
+    del cache, outs, dec, full
+
+    # the card against the CPU on the same f32 parameters
+    B, S = 1, 8
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    pcpu = T.to_device(p32, "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = T.forward(cfg, pcpu, toks)
+        got = T.forward(cfg, p32, toks.to(dev)).cpu()
+    del pcpu
+    abs_err = max_abs_err(got, want)
+    top = float(want.abs().max())
+    require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+            f"card forward != CPU forward: max abs {abs_err}")
+    print(f"check: {label} card forward == CPU forward at B={B}, S={S} "
+          f"(rtol 1e-4, atol 1e-4): max abs err {abs_err:.3e}, "
+          f"{abs_err / top:.3e} of the largest |logit| {top:.3f} "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+    # the bf16 LMServer: the prompt is stepped into a cache once a batch;
+    # decode_step leaves its input cache as it was, so each pass's server
+    # starts from that same prefilled cache
+    p16 = T.tree_map(lambda a: a.to(torch.bfloat16), p32)
+    for B in LM_BATCHES:
+        prompt = rng.integers(0, cfg.vocab, (B, LM_PROMPT)).astype(np.int32)
+        prompt_t = torch.from_numpy(prompt).to(dev)
+        with torch.no_grad():
+            top1_f32 = T.prefill(cfg, p32, prompt_t).argmax(-1)[:, 0].cpu()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        srv = LMServer(cfg, p16, T.init_cache(
+            cfg, B, LM_MAX_LEN, dtype=torch.bfloat16, device=dev),
+            device=dev)
+        with torch.no_grad():
+            for i in range(LM_PROMPT - 1):
+                srv.cache = srv._step(srv.params, srv.cache,
+                                      prompt_t[:, i:i + 1])[1]
+        prefilled = srv.cache
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(LM_PASSES):
+            srv = LMServer(cfg, p16, prefilled, device=dev)
+            out = srv.generate(prompt, LM_NEW)
+            ms.append(1e3 * srv.stats.seconds / LM_NEW)
+            require(out.shape == (B, LM_NEW) and out.dtype == np.int32
+                    and bool(((out >= 0) & (out < cfg.vocab)).all()),
+                    f"LMServer tokens at B={B}: shape {out.shape}, range "
+                    f"[{out.min()}, {out.max()}]")
+            require(srv.stats.queries == B * LM_NEW,
+                    f"LMServer counted {srv.stats.queries} queries, not "
+                    f"{B * LM_NEW}")
+            require(srv.cache["step"] == LM_PROMPT - 1 + LM_NEW
+                    and prefilled["step"] == LM_PROMPT - 1,
+                    "LMServer cache steps")
+        peak = torch.cuda.max_memory_allocated(dev)
+        agree = float((torch.from_numpy(out[:, 0]) == top1_f32).float()
+                      .mean())
+        # one more step: its logits, then the same step under the profiler
+        tok = torch.from_numpy(out[:, -1:]).to(dev)
+        with torch.no_grad():
+            lg, _ = srv._step(srv.params, srv.cache, tok)
+            torch.cuda.synchronize()
+            require(lg.shape == (B, 1, cfg.vocab) and lg.dtype ==
+                    torch.float32 and bool(torch.isfinite(lg).all()),
+                    f"bf16 step logits at B={B}: {lg.shape}, {lg.dtype}")
+            with profiler() as prof:
+                t0 = time.perf_counter()
+                srv._step(srv.params, srv.cache, tok)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+        dev_ops = device_times(prof)
+        busy = sum(us for _, us in dev_ops.values()) / 1e3
+        n_ops = sum(c for c, _ in dev_ops.values())
+        step = float(np.median(ms))
+        need = lm_step_bytes(cfg, p16, B, LM_MAX_LEN, 2)
+        bound = 1e3 * need["total"] / HBM_BYTES_PER_S
+        print(f"lm: {label} bf16 LMServer B={B}: {step:.4f} ms per decode "
+              f"step (median of {LM_PASSES} passes of {LM_NEW} tokens: "
+              f"{', '.join(f'{m:.4f}' for m in ms)}), "
+              f"{1e3 * B / step:.1f} tokens/s, max_memory_allocated {peak} "
+              f"bytes; top-1 of the first token == f32's on {agree:.3f} of "
+              f"rows")
+        print(f"lm: {label} B={B} profiled step: wall {wall:.4f} ms, "
+              f"device {busy:.4f} ms in {n_ops} device ops, idle share "
+              f"{1 - busy / wall:.4f}")
+        print(f"lm: {label} B={B} bound: {need['weights']} weight bytes "
+              f"({1e3 * need['weights'] / HBM_BYTES_PER_S:.4f} ms) + "
+              f"{need['gather']} embedding rows + {need['cache']} cache "
+              f"bytes + {need['logits']} logit bytes = {need['total']} "
+              f"bytes, {bound:.4f} ms at {HBM_BYTES_PER_S:.3g} B/s; the "
+              f"measured step is {step / bound:.2f}x the bound "
+              f"({bound / step:.4f} of it)")
+        del srv, lg, prefilled
+    del p16, p32
+    torch.cuda.empty_cache()
+    lm_kernel_launches(kernels, label, by_path)
+
+
+def lm_families(dev, kernels: dict, by_path: dict) -> None:
+    """The ten architectures' reduced configs on the card: forward logits
+    == the CPU's on the same f32 parameters (rtol 1e-4, atol 1e-5 times the
+    larger of 1 and the logits' largest magnitude, as the CPU parity tests
+    hold the port to the reference), and for the six decode
+    representatives stepped decode == forward on the card (rtol 2e-3, atol
+    2e-4)."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import transformer as T
+
+    full_f32_matmuls()
+    label = "LM families"
+    print(f"path: {label}, reduced")
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = T.init_params(cfg, LM_SEED, dtype=torch.float32,
+                               device="cpu")
+        rng = np.random.default_rng(LM_SEED)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
+        enc = (torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+            if cfg.encdec else None)
+        pdev = T.to_device(params, dev)
+        with torch.no_grad():
+            want = T.forward(cfg, params, toks, enc_frames=enc)
+            got = T.forward(cfg, pdev, toks.to(dev), enc_frames=None
+                            if enc is None else enc.to(dev))
+        require(lm_close(got.cpu(), want, 1e-4, 1e-5),
+                f"{arch} reduced: card forward != CPU forward, max abs "
+                f"{max_abs_err(got.cpu(), want)}")
+        line = (f"check: {arch} reduced card forward == CPU (rtol 1e-4, "
+                f"atol 1e-5 x {max(1.0, float(want.abs().max())):.3f}): "
+                f"max abs err {max_abs_err(got.cpu(), want):.3e}")
+        if arch in LM_DECODE_ARCHS:
+            S = 16
+            t = toks[:, :S].to(dev)
+            e = None if enc is None else enc.to(dev)
+            with torch.no_grad():
+                full = T.forward(cfg, pdev, t, enc_frames=e)
+                enc_out = T.encode(cfg, pdev, e) if cfg.encdec else None
+                cache = T.init_cache(cfg, 2, S, dtype=torch.float32,
+                                     enc_out=enc_out, params=pdev,
+                                     device=dev)
+                outs = []
+                for i in range(S):
+                    lg, cache = T.decode_step(cfg, pdev, cache, t[:, i:i + 1])
+                    outs.append(lg)
+                dec = torch.cat(outs, dim=1)
+            require(torch.allclose(dec, full, rtol=2e-3, atol=2e-4),
+                    f"{arch} reduced: decode != forward on the card, max "
+                    f"abs {max_abs_err(dec, full)}")
+            line += (f"; decode == forward on the card (rtol 2e-3, atol "
+                     f"2e-4): max abs err {max_abs_err(dec, full):.3e}")
+        print(line)
+    torch.cuda.synchronize()
+    print(f"lm: {label}: {len(ARCH_IDS)} architectures in "
+          f"{time.perf_counter() - t0:.2f} s")
+    lm_kernel_launches(kernels, label, by_path)
+
+
 def main() -> None:
     import torch
 
@@ -2345,6 +2658,11 @@ def main() -> None:
     sharded_path(index, bx, sh, gsh, dense_got, s, t, qs, kernels, twins,
                  dev, by_path)
     sharded_acceptance(kernels, twins, dev, by_path)
+
+    # -- 10d. the LM port: tinyllama-1.1b at full width, then the ten
+    # architectures reduced (plain PyTorch: no EHL kernel launches) --------
+    lm_full_width(dev, kernels, by_path)
+    lm_families(dev, kernels, by_path)
 
     # -- 11. kernel times beside the twins' and the bound ---------------------
     def bound(nbytes: float, ops: float) -> tuple[float, str]:

@@ -15,6 +15,9 @@ The stats (``ServeStats``/``BucketStats``) are views over the metrics
 registry of the server's ``telemetry`` (DESIGN.md §12), and head-sampled
 requests leave span trees in its trace ring: ``SYNC_STAGES`` for
 ``query``/``query_paths``, ``ASYNC_STAGES`` through the batcher.
+
+``LMServer`` is the greedy decode loop of the LM port
+(``repro_torch.models``), counted in the same ``ServeStats``.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ import time
 
 import numpy as np
 
+import torch
+
 from repro_torch import obs
-from repro_torch.core.packed import empty_results
+from repro_torch.core.packed import empty_results, resolve_device
 from repro_torch.core.query import path_length, unwind_path
 from repro_torch.serving.query_engine import HostEngine, QueryEngine, make_engine
 
@@ -359,3 +364,38 @@ class PathServer:
         self.stats.queries += len(s)
         self._close_sync(trace, t0, t1)
         return d, paths
+
+
+class LMServer:
+    """Greedy decode server over a prefilled cache (shared stats plumbing).
+
+    ``_step`` is the eager ``decode_step``.  ``generate`` feeds the prompt's
+    last token and then each step's argmax; tokens stay on the device and
+    come to the host once, at the end.  Params and cache move to ``device``
+    (the card unless the caller asks for the CPU).
+    """
+
+    def __init__(self, cfg, params, cache, device="cuda"):
+        from repro_torch.models import transformer as T
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = T.to_device(params, self.device)
+        self.cache = T.to_device(cache, self.device)
+        self.stats = ServeStats()
+        self._step = lambda p, c, t: T.decode_step(cfg, p, c, t)
+
+    @torch.no_grad()
+    def generate(self, prompt_tokens: np.ndarray, n_new: int) -> np.ndarray:
+        B = prompt_tokens.shape[0]
+        tok = torch.as_tensor(np.asarray(prompt_tokens)[:, -1:],
+                              dtype=torch.int64).to(self.device)
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(n_new):
+            logits, self.cache = self._step(self.params, self.cache, tok)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            out.append(tok)
+        toks = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+        self.stats.seconds += time.perf_counter() - t0
+        self.stats.queries += B * n_new
+        return toks

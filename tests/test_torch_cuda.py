@@ -5,7 +5,9 @@ when no CUDA device is present, so every worker collects the same tests.
 The kernels must equal their twins bit for bit (``torch.equal``).  Also on
 the card: point location at a cell size that is not a power of two, the
 single-slab engines, the split-phase (async) path against the synchronous
-one, and the warmup check (no build, load or cold shape on live traffic).
+one, and the warmup check (no build, load or cold shape on live traffic);
+and the LM port's reduced families (card forward == CPU forward, decode ==
+forward, ``LMServer`` tokens card == CPU).
 This module imports no JAX (the card's machine has none); names added with
 the slab and async slice are imported inside the tests that use them.
 """
@@ -976,3 +978,99 @@ def test_cell3_sharded_location_on_card(card):
     single-device engine and the float64 oracle do."""
     idx, _, _, s, t, truth = cell3_case(card)
     assert check_cell3_sharded(idx, s, t, truth, card) > 0
+
+
+# ---------------------------------------------------------------------------
+# the LM port (repro_torch.models) on the card, reduced families
+# ---------------------------------------------------------------------------
+
+LM_DECODE_ARCHS = ["tinyllama-1.1b", "deepseek-v3-671b", "gemma2-27b",
+                   "mamba2-780m", "hymba-1.5b", "whisper-large-v3"]
+
+
+@pytest.fixture
+def full_f32(card):
+    """float32 matmuls in full precision (no TF32) while a test runs."""
+    tf32, prec = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    yield card
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.set_float32_matmul_precision(prec)
+
+
+def _lm_case(arch, B, S, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch).reduced()
+    params = T.init_params(cfg, seed, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    enc = (torch.from_numpy(rng.standard_normal(
+        (B, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        if cfg.encdec else None)
+    return cfg, params, toks, enc
+
+
+@pytest.mark.parametrize("arch", [
+    "llama4-scout-17b-a16e", "deepseek-v3-671b", "tinyllama-1.1b",
+    "nemotron-4-340b", "gemma2-27b", "gemma3-12b", "hymba-1.5b",
+    "mamba2-780m", "qwen2-vl-72b", "whisper-large-v3"])
+def test_lm_reduced_forward_card_equals_cpu(full_f32, arch):
+    """The same float32 parameters give the same logits on the card and on
+    the CPU (rtol 1e-4, atol 1e-5 times the larger of 1 and the logits'
+    largest magnitude, as the CPU tests hold the port to the reference)."""
+    from repro_torch.models import transformer as T
+
+    cfg, params, toks, enc = _lm_case(arch, 2, 32)
+    want = T.forward(cfg, params, toks, enc_frames=enc)
+    got = T.forward(cfg, T.to_device(params, full_f32), toks.to(full_f32),
+                    enc_frames=None if enc is None else enc.to(full_f32))
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("arch", LM_DECODE_ARCHS)
+def test_lm_reduced_decode_equals_forward_on_card(full_f32, arch):
+    """Stepped decode equals forward on the card at the reference test's
+    rtol 2e-3 and atol 2e-4."""
+    from repro_torch.models import transformer as T
+
+    B, S = 2, 16
+    cfg, params, toks, enc = _lm_case(arch, B, S)
+    params = T.to_device(params, full_f32)
+    toks = toks.to(full_f32)
+    enc = None if enc is None else enc.to(full_f32)
+    full = T.forward(cfg, params, toks, enc_frames=enc)
+    enc_out = T.encode(cfg, params, enc) if cfg.encdec else None
+    cache = T.init_cache(cfg, B, S, dtype=torch.float32, enc_out=enc_out,
+                         params=params, device=full_f32)
+    outs = []
+    for i in range(S):
+        lg, cache = T.decode_step(cfg, params, cache, toks[:, i:i + 1])
+        outs.append(lg)
+    torch.testing.assert_close(torch.cat(outs, dim=1), full, rtol=2e-3,
+                               atol=2e-4)
+
+
+def test_lm_server_on_card_equals_cpu(full_f32):
+    """Greedy tokens of the card's LMServer equal the CPU's (float32)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import LMServer
+
+    cfg, params, toks, _ = _lm_case("tinyllama-1.1b", 2, 6)
+    prompt = toks.numpy().astype(np.int32)
+    got = {}
+    for dev in ("cpu", full_f32):
+        srv = LMServer(cfg, params, T.init_cache(cfg, 2, 16,
+                                                 dtype=torch.float32,
+                                                 device=dev), device=dev)
+        for i in range(prompt.shape[1] - 1):
+            srv.cache = srv._step(srv.params, srv.cache, torch.from_numpy(
+                prompt[:, i:i + 1]).to(dev))[1]
+        got[str(dev)] = srv.generate(prompt, 8)
+        assert srv.stats.queries == 16
+    a, b = got.values()
+    np.testing.assert_array_equal(a, b)

@@ -171,3 +171,37 @@ def test_main_path_operands_have_the_serving_shapes():
         # the serving path's answers on the same batch come from these rows
         rowmin = ref.label_join_rowmin_ref(*join)
         assert rowmin.shape == (B, w)
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_lm_step_bytes_of_tinyllama(B):
+    """The LM bound's bytes a bf16 decode step: every parameter but the
+    untied embedding table (2069024768 bytes, the final norm's 4096
+    included), B gathered rows, the whole 256-slot K/V cache
+    (22·2·B·256·4·64·2 bytes) and the float32 logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("tinyllama-1.1b")
+    params = T.init_params(cfg, 0, dtype=torch.bfloat16, device="meta")
+    need = cs.lm_step_bytes(cfg, params, B, 256, 2)
+    assert need["weights"] == 2069024768
+    assert need["gather"] == B * 2048 * 2
+    assert need["cache"] == 22 * 2 * B * 256 * 4 * 64 * 2
+    assert need["logits"] == B * 32000 * 4
+    assert need["total"] == sum(need[k] for k in ("weights", "gather",
+                                                  "cache", "logits"))
+    if B == 32:
+        assert need["cache"] == 184549376
+
+
+def test_lm_step_bytes_tied_embeddings_read_the_table():
+    """A tied table is the unembedding: read whole, no separate rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("gemma2-27b").reduced()
+    params = T.init_params(cfg, 0, dtype=torch.bfloat16, device="meta")
+    need = cs.lm_step_bytes(cfg, params, 4, 16, 2)
+    assert need["gather"] == 0
+    assert need["weights"] == sum(t.numel() * 2 for t in cs._leaves(params))
