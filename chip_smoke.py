@@ -14,7 +14,8 @@ every cell boundary, located on the card where the host routing and the
 residual table locate them, served within 1e-4 of the float64 oracle),
 then drives nine serving paths, each with the launch counts set to 0 just
 before it and read just after, and each with a ``warmup:`` line (nvcc
-builds, ctypes loads and cold shape keys met on live traffic after
+builds and ctypes loads from the registry's ``kernel_builds_total`` and
+``kernel_loads_total``, and cold shape keys, met on live traffic after
 ``warmup(paths=True)``, all required to be 0, and the allocator's segment
 count before and after):
 
@@ -114,6 +115,28 @@ of the kernels, and their counts, set to 0 before each, must stay 0):
   representatives stepped decode equals forward on the card (rtol 2e-3,
   atol 2e-4).
 
+Then two LM training paths (``models.transformer.loss_fn``, ``optim``,
+``launch.train``; plain PyTorch, no EHL kernel launched):
+
+* tinyllama-1.1b trained at its published width from a seeded random
+  init: loss and every gradient leaf on the card equal the CPU's at B=1,
+  S=16 (f32, TF32 off; rtol 1e-4, atol 1e-4 times each leaf's largest
+  |value|; the loss within rtol 1e-5), then 12 steps of
+  ``build_train_step`` at B=8, S=512 on ``synthetic_batch`` (f32
+  parameters and AdamW moments, remat "full", ce_chunk 512, lr 1e-3,
+  warmup 5), the last loss below the first: ms per step (median after the
+  first two), tokens/s, ``max_memory_allocated``, one profiled step
+  (device ms, device ops, idle share) and the step against 8·N·T FLOP over
+  the float32 peak; then the same with bf16 parameters against the bf16
+  peak;
+* the ten reduced configs: loss and gradients on the card equal the CPU's
+  (the CPU parity tests' tolerances), the launcher (``main([...,
+  "--device", "cuda"])``) for the nine token-only families, and on
+  tinyllama reduced 16 guarded steps with a fault at step 6 and
+  checkpoints every 4 under ``build/`` (the guard restores step 4, the
+  loss falls), a ``--resume`` run from step 15, and ``--grad-compress`` on
+  one rank (the loss falls).
+
 Before the adaptive path, the f16 layout is checked once (answers only),
 and a fresh rooms-M build is merged to 0.6x the f32 artifact's device
 bytes under the bf16 layout (``compress_to_device_budget``) and served.  ``label_join_rowmin``
@@ -212,6 +235,26 @@ LM_MAX_LEN, LM_PROMPT, LM_NEW, LM_PASSES = 256, 64, 64, 3
 LM_BATCHES = (1, 8, 32)
 LM_DECODE_ARCHS = ("tinyllama-1.1b", "deepseek-v3-671b", "gemma2-27b",
                    "mamba2-780m", "hymba-1.5b", "whisper-large-v3")
+# the LM training paths: tinyllama-1.1b at its published width (f32
+# parameters and AdamW moments, remat "full", ce_chunk 512) on
+# synthetic_batch streams, card == CPU loss and gradients at B=1, S=16,
+# then LM_TRAIN_STEPS steps in f32 and in bf16 (warmup 5); the reduced
+# families through the launcher
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_LR = 8, 512, 12, 1e-3
+# card == CPU gradients at full width: rtol 1e-4 and atol 1e-4 times the
+# leaf's largest |value| (gradients sit far below 1, so the LM forward
+# checks' floor of 1 on the scale would make the check blind); the loss
+# within rtol 1e-5
+LM_GRAD_RTOL, LM_GRAD_ATOL = 1e-4, 1e-4
+# the reduced families on the card against the CPU: the CPU parity tests'
+# rule (rtol 1e-4, atol 1e-5 times the larger of 1 and the leaf's largest
+# |value|; mamba2 atol 5e-5, tests/test_torch_lm_grad.py)
+LM_FAMILY_ATOL = {"mamba2-780m": 5e-5}
+# H100 SXM peaks for the training step's bound (NVIDIA data sheet, dense):
+# float32 outside the tensor cores (TF32 is off for the f32 run) and bf16
+F32_PEAK_FLOPS, BF16_PEAK_FLOPS = 67e12, 989e12
+# device kernel names of the cuBLAS/CUTLASS matmuls (lower case)
+GEMM_KERNEL_TAGS = ("gemm", "xmma", "cutlass", "nvjet")
 
 
 def card_line() -> str:
@@ -504,14 +547,15 @@ def rowmin_inputs(rng, B: int, L: int, dev, hubs: int = 96):
 
 def cold_state() -> tuple:
     """(cold shape keys, nvcc builds, ctypes loads, allocator segments
-    allocated) so far in this process."""
+    allocated) so far in this process; the builds and loads as the
+    registry's ``kernel_builds_total`` and ``kernel_loads_total``."""
     import torch
 
     from repro_torch.core.packed import TRACES
-    from repro_torch.kernels import build
+    from repro_torch.obs import REGISTRY
 
-    return (TRACES.count, sum(build.BUILDS.values()),
-            sum(build.LOADS.values()),
+    return (TRACES.count, int(REGISTRY.total("kernel_builds_total")),
+            int(REGISTRY.total("kernel_loads_total")),
             torch.cuda.memory_stats()["segment.all.allocated"])
 
 
@@ -724,7 +768,7 @@ def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
             f"rooms-M bf16 path launches: {run['launches']}")
     # (a) CudaEngine == TorchEngine, (d) the float64 oracle; the rescue
     # share of one full argmin pass
-    eng.rescue_batches = eng.rescue_rows = 0
+    eng.rescue_rows = 0
     eng.rescue_seconds = 0.0
     batches = srv.stats.batches
     rescued0 = series_of(obs.REGISTRY, "rescue_batches_total", "engine")
@@ -735,14 +779,13 @@ def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
     rescued = grown(series_of(obs.REGISTRY, "rescue_batches_total",
                               "engine"), rescued0)
     # (the twin engine's rescues land on its own row, engine="torch")
-    require(rescued.get("cuda") == eng.rescue_batches > 0,
+    require(rescued.get("cuda", 0) > 0 and eng.rescue_rows > 0,
             f"rescue_batches_total grew by {rescued}, the CudaEngine "
-            f"rescued {eng.rescue_batches}")
-    print(f"rescue: one argmin pass of {len(s)} queries: {eng.rescue_batches}"
-          f" of {batches} batches rescued, {eng.rescue_rows} of "
-          f"{batches * BATCH} rows (padding included), host "
-          f"{1e3 * eng.rescue_seconds:.3f} ms; exported "
-          f"rescue_batches_total{{engine=cuda}} grew by {rescued['cuda']}")
+            f"rescued {eng.rescue_rows} rows")
+    print(f"rescue: one argmin pass of {len(s)} queries: {rescued['cuda']:g}"
+          f" of {batches} batches rescued (rescue_batches_total"
+          f"{{engine=cuda}}), {eng.rescue_rows} of {batches * BATCH} rows "
+          f"(padding included), host {1e3 * eng.rescue_seconds:.3f} ms")
     # (b) distances within 2·qerr of the f32 path, (c) winners bit for bit
     dense_d = dense_got[0]
     diff = np.abs(run["d"] - dense_d)[np.isfinite(dense_d)]
@@ -889,6 +932,7 @@ def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
     equal the slab TorchEngine's and the bucketed path's bit for bit.  Then
     the bf16/u16 slab's answers (distances within 2·qerr of the f32 slab,
     winners equal to it after the rescue)."""
+    from repro_torch import obs
     from repro_torch.core.packed import (pack_index, slab_device_bytes,
                                          slab_layout)
     from repro_torch.serving import CudaEngine, PathServer, TorchEngine
@@ -923,8 +967,11 @@ def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
     qpk = pack_index(index, layout=slab_layout("bf16"), device=dev)
     qerr = float(qpk.qerr)
     eng = CudaEngine(qpk)
+    rescued0 = series_of(obs.REGISTRY, "rescue_batches_total", "engine")
     qgot = PathServer(eng, batch_size=BATCH)._dispatch(s, t,
                                                        want_argmin=True)
+    rescued = grown(series_of(obs.REGISTRY, "rescue_batches_total",
+                              "engine"), rescued0).get("cuda", 0)
     require(within_qerr(qgot[0], got[0], qerr),
             "bf16 slab distances beyond 2·qerr of the f32 slab")
     for name, a, b in zip(ANSWERS[1:], qgot[1:], got[1:]):
@@ -934,7 +981,7 @@ def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
           f"qerr {qerr:.9g}): max |d - d_f32| "
           f"{float(np.abs(qgot[0][fin] - got[0][fin]).max(initial=0.0)):.6e}"
           f" (2·qerr {2 * qerr:.6e}); covis, via_s, hub, via_t equal the f32 "
-          f"slab's bit for bit; rescue: {eng.rescue_batches} batches, "
+          f"slab's bit for bit; rescue: {rescued:g} batches, "
           f"{eng.rescue_rows} rows (padding included), host "
           f"{1e3 * eng.rescue_seconds:.3f} ms")
 
@@ -1046,23 +1093,25 @@ def telemetry_path(bx, index, dense_got, s, t, kernels, twins,
     srv = PathServer(eng, batch_size=TELEMETRY_BATCH, telemetry=tel)
     cap = obs.enable_profile(timing=True)
     try:
-        by_entry0 = dict(TRACES.by_entry)
+        count0 = TRACES.count
         cold0 = series_of(reg, "entry_cold_total", "entry")
         srv.warmup(paths=True)
-        met = grown(TRACES.by_entry, by_entry0)
-        cold = grown(series_of(reg, "entry_cold_total", "entry"), cold0)
+        met = grown(series_of(reg, "entry_cold_total", "entry"), cold0)
         require({"fold_endpoint", "join_endpoints"} <= set(met)
-                and cold == met,
-                f"warmup: entry_cold_total {cold} != TRACES growth {met}")
+                and sum(met.values()) == TRACES.count - count0,
+                f"warmup: entry_cold_total grew by {met}, TRACES.count by "
+                f"{TRACES.count - count0}")
         recorded = {e: len(r) for e, r in cap.by_entry().items()}
         require(recorded == {e: n for e, n in met.items()
                              if e in SERVING_ENTRIES},
-                f"capture's cold calls {recorded} != TRACES growth {met}")
-        require(series_of(reg, "kernel_builds_total", "kernel")
-                == build.BUILDS
-                and series_of(reg, "kernel_loads_total", "kernel")
-                == build.LOADS,
-                "kernel_builds_total / kernel_loads_total != BUILDS / LOADS")
+                f"capture's cold calls {recorded} != entry_cold_total "
+                f"growth {met}")
+        builds = series_of(reg, "kernel_builds_total", "kernel")
+        loads = series_of(reg, "kernel_loads_total", "kernel")
+        require(all(builds.get(n, 0) <= 1 and loads.get(n) == 1
+                    for n in build.KERNEL_SOURCES),
+                f"kernel builds {builds}, loads {loads}: each source is "
+                f"built at most and loaded exactly once in a process")
         warm = cold_state()
         cold_warm = series_of(reg, "entry_cold_total", "entry")
         cold_s = series_of(reg, "entry_cold_seconds_total", "entry")
@@ -1070,7 +1119,7 @@ def telemetry_path(bx, index, dense_got, s, t, kernels, twins,
               + ", ".join(f"{e} {n}" + (f" ({cold_s[e]:.4f} s)"
                                          if e in cold_s else "")
                           for e, n in sorted(met.items()))
-              + f"; nvcc builds {build.BUILDS}, loads {build.LOADS}")
+              + f"; nvcc builds {builds}, loads {loads}")
 
         # live traffic: sync passes, paths, the argmin dispatch, async
         routed = np.zeros(eng.num_buckets, np.int64)
@@ -2352,6 +2401,281 @@ def lm_families(dev, kernels: dict, by_path: dict) -> None:
     lm_kernel_launches(kernels, label, by_path)
 
 
+def tree_errors(got: dict, want: dict, rtol: float, atol: float,
+                floor: float) -> float:
+    """Require every leaf of ``got`` (flattened, on the card) within rtol
+    and atol times its scale of ``want``'s (on the CPU), the scale the
+    larger of ``floor`` and the leaf's largest |value|; returns the largest
+    |error| / scale."""
+    import torch
+
+    worst = 0.0
+    require(sorted(got) == sorted(want), "gradient trees differ in keys")
+    for k, w in want.items():
+        g = got[k].cpu()
+        scale = max(floor, float(w.abs().max()))
+        require(torch.allclose(g, w, rtol=rtol, atol=atol * scale),
+                f"gradient {k}: card != CPU, max abs {max_abs_err(g, w)} "
+                f"(scale {scale})")
+        worst = max(worst, max_abs_err(g, w) / scale if scale else 0.0)
+    return worst
+
+
+def train_steps(step_fn, params, state, dcfg, steps: int, dev):
+    """``steps`` train steps on ``synthetic_batch``: (params, state,
+    losses, wall ms of each step, the step's metrics)."""
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_batch
+
+    losses, ms = [], []
+    for i in range(steps):
+        batch = torch.from_numpy(synthetic_batch(dcfg, i)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        require(np.isfinite(losses[-1]), f"train step {i}: loss {losses[-1]}")
+    return params, state, losses, ms, m
+
+
+def lm_train_full_width(dev, kernels: dict, by_path: dict) -> None:
+    """tinyllama-1.1b trained at its published width: card == CPU loss and
+    every gradient leaf at B=1, S=16 (f32, TF32 off); then LM_TRAIN_STEPS
+    steps at B=LM_TRAIN_BATCH, S=LM_TRAIN_SEQ from ``synthetic_batch``,
+    f32 parameters and moments, remat "full", ce_chunk 512: the last loss
+    below the first, ms per step (median after the first two), tokens/s,
+    ``max_memory_allocated``, one profiled step and the step against 8·N·T
+    FLOP over the float32 peak; then the same steps with bf16 parameters
+    (``--dtype bfloat16``: float32 moments) against the bf16 peak."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.train import build_train_step, loss_and_grads
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten
+
+    full_f32_matmuls()
+    cfg = dataclasses.replace(get_config(LM_ARCH), remat="full",
+                              ce_chunk=512)
+    label = f"{LM_ARCH} train"
+    print(f"path: {label} (full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; random init, seed {LM_SEED}; "
+          f"remat {cfg.remat}, ce_chunk {cfg.ce_chunk})")
+    for k in kernels.values():
+        k.launches = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    p32 = T.init_params(cfg, gen, dtype=torch.float32, device=dev)
+    n_params = sum(t.numel() for t in _leaves(p32))
+
+    # the card against the CPU: loss and every gradient leaf, B=1, S=16
+    rng = np.random.default_rng(LM_SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 16)).astype(
+        np.int32))
+    t0 = time.perf_counter()
+    want_loss, want = loss_and_grads(cfg, T.to_device(p32, "cpu"), toks)
+    cpu_s = time.perf_counter() - t0
+    got_loss, got = loss_and_grads(cfg, p32, toks.to(dev))
+    want, got = flatten(want), flatten(got)
+    lerr = abs(float(got_loss) - float(want_loss))
+    require(lerr <= 1e-5 * abs(float(want_loss)),
+            f"card loss {float(got_loss)} != CPU loss {float(want_loss)}")
+    worst = tree_errors(got, want, LM_GRAD_RTOL, LM_GRAD_ATOL, 0.0)
+    print(f"check: {label} card == CPU at B=1, S=16 (f32, TF32 off): loss "
+          f"{float(want_loss):.6f}, |error| {lerr:.3e} (rtol 1e-5); "
+          f"{len(want)} gradient leaves within rtol {LM_GRAD_RTOL:g}, atol "
+          f"{LM_GRAD_ATOL:g} x each leaf's largest |value|: largest "
+          f"|error| / that scale {worst:.3e} (CPU {cpu_s:.1f} s)")
+    del want, got
+
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                      global_batch=LM_TRAIN_BATCH, seed=LM_SEED)
+    ocfg = adamw.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=5,
+                             total_steps=LM_TRAIN_STEPS)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flop = 8 * n_params * tokens     # forward, full-remat recompute, backward
+    runs = (("f32", torch.float32, F32_PEAK_FLOPS,
+             "float32 outside the tensor cores, TF32 off"),
+            ("bf16", torch.bfloat16, BF16_PEAK_FLOPS,
+             "bf16 on the tensor cores, dense"))
+    for name, dtype, peak, peak_name in runs:
+        params = T.tree_map(lambda a: a.to(dtype), p32)
+        if dtype == torch.bfloat16:
+            del p32
+        state = adamw.init_state(params, ocfg)
+        step = build_train_step(cfg, ocfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, state, losses, ms, m = train_steps(
+            step, params, state, dcfg, LM_TRAIN_STEPS, dev)
+        peak_bytes = torch.cuda.max_memory_allocated(dev)
+        require(losses[-1] < losses[0],
+                f"{label} {name}: loss did not fall: {losses}")
+        med = float(np.median(ms[2:]))
+        # one more step under the profiler
+        batch = torch.from_numpy(synthetic_batch(dcfg, LM_TRAIN_STEPS)).to(
+            dev)
+        torch.cuda.synchronize()
+        with profiler() as prof:
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev_ops = device_times(prof)
+        busy = sum(us for _, us in dev_ops.values()) / 1e3
+        n_ops = sum(c for c, _ in dev_ops.values())
+        bound = 1e3 * flop / peak
+        print(f"lm: {label} {name}: losses " + ", ".join(
+            f"{x:.4f}" for x in losses) + f" (lr {LM_TRAIN_LR:g}, warmup 5; "
+              f"gnorm {float(m['grad_norm']):.3f} at the last step)")
+        print(f"lm: {label} {name} B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ}: "
+              f"{med:.4f} ms per step (median of steps 3-{LM_TRAIN_STEPS}; "
+              f"first two {ms[0]:.1f}, {ms[1]:.1f} ms), "
+              f"{1e3 * tokens / med:.1f} tokens/s, max_memory_allocated "
+              f"{peak_bytes} bytes")
+        print(f"lm: {label} {name} profiled step: wall {wall:.4f} ms, device "
+              f"{busy:.4f} ms in {n_ops} device ops, idle share "
+              f"{1 - busy / wall:.4f}")
+        gemm = sum(us for k, (_, us) in dev_ops.items()
+                   if any(t in k.lower() for t in GEMM_KERNEL_TAGS)) / 1e3
+        top = sorted(dev_ops.items(), key=lambda kv: -kv[1][1])[:5]
+        # (a session whose device events the profiler dropped has busy 0)
+        share = gemm / busy if busy else float("nan")
+        print(f"lm: {label} {name} profiled step by kernel: matmul kernels "
+              f"{gemm:.4f} ms ({share:.4f} of device time); largest: "
+              + "; ".join(f"{k[:72]} {us / 1e3:.4f} ms in {c}"
+                          for k, (c, us) in top))
+        print(f"lm: {label} {name} bound: 8·N·T = 8 x {n_params} x {tokens} "
+              f"= {flop:.4e} FLOP over the {name} peak {peak:.3g} FLOP/s "
+              f"({peak_name}; H100 SXM data sheet) = {bound:.4f} ms; the "
+              f"measured step is "
+              f"{med / bound:.2f}x the bound ({bound / med:.4f} of it)")
+        del params, state, step
+    torch.cuda.empty_cache()
+    lm_kernel_launches(kernels, label, by_path)
+
+
+def run_main(argv) -> tuple:
+    """(final loss, printed lines) of one in-process run of the port's
+    training launcher."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import main as train_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        loss = train_main(argv)
+    return loss, out.getvalue().splitlines()
+
+
+def step_losses(lines) -> list:
+    return [float(x.split("loss=")[1].split()[0]) for x in lines
+            if x.startswith("step")]
+
+
+def lm_train_families(dev, kernels: dict, by_path: dict) -> None:
+    """The ten reduced configs' training on the card: loss and every
+    gradient leaf == the CPU's on the same f32 parameters (the CPU parity
+    tests' tolerances), then the launcher (``launch.train.main`` with
+    ``--device cuda``) for every token-only family (whisper takes encoder
+    frames, which the launcher's data pipeline does not make, as in the
+    reference), then tinyllama reduced: 16 guarded steps with a fault
+    injected at step 6 and checkpoints every 4 under ``build/``, a
+    ``--resume`` run from the last checkpoint, and ``--grad-compress`` on
+    one rank."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten
+
+    full_f32_matmuls()
+    label = "LM families train"
+    print(f"path: {label}, reduced")
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = T.init_params(cfg, LM_SEED, dtype=torch.float32,
+                               device="cpu")
+        rng = np.random.default_rng(LM_SEED)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)).astype(
+            np.int32))
+        enc = (torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+            if cfg.encdec else None)
+        want_loss, want = loss_and_grads(cfg, params, toks, enc)
+        got_loss, got = loss_and_grads(
+            cfg, T.to_device(params, dev), toks.to(dev),
+            None if enc is None else enc.to(dev))
+        atol = LM_FAMILY_ATOL.get(arch, 1e-5)
+        require(lm_close(got_loss.cpu(), want_loss, 1e-4, atol),
+                f"{arch} reduced: card loss {float(got_loss)} != CPU "
+                f"{float(want_loss)}")
+        worst = tree_errors(flatten(got), flatten(want), 1e-4, atol, 1.0)
+        print(f"check: {arch} reduced train card == CPU: loss "
+              f"{float(want_loss):.4f} (|error| "
+              f"{abs(float(got_loss) - float(want_loss)):.3e}); gradients "
+              f"within rtol 1e-4, atol {atol:g} x max(1, |leaf|): largest "
+              f"|error| / scale {worst:.3e}")
+    ckpt = ROOT / "build" / "chip_smoke_train"
+    base = ["--reduced", "--batch", "4", "--seq", "64", "--device", "cuda"]
+    for arch in ARCH_IDS:
+        if get_config(arch).encdec:
+            continue
+        shutil.rmtree(ckpt, ignore_errors=True)
+        _, lines = run_main(["--arch", arch, "--steps", "6", "--ckpt-dir",
+                             str(ckpt)] + base)
+        losses = step_losses(lines)
+        require(len(losses) == 6 and all(np.isfinite(losses)),
+                f"{arch} reduced: launcher losses {losses}")
+        print(f"train: {arch} reduced, launcher on the card, 6 steps: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    arch = ["--arch", LM_ARCH, "--ckpt-dir", str(ckpt), "--lr", "3e-3"] + base
+    _, lines = run_main(arch + ["--steps", "16", "--ckpt-every", "4",
+                                "--fault-inject", "6"])
+    losses = step_losses(lines)
+    restored = [x.strip() for x in lines if "[guard] restored step" in x]
+    require(len(losses) == 16 and losses[-1] < losses[0]
+            and restored == ["[guard] restored step 4"],
+            f"guarded run: losses {losses}, guard lines {restored}")
+    print(f"train: {LM_ARCH} reduced, 16 guarded steps with a fault at step 6"
+          f": {restored[0]}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    _, lines = run_main(arch + ["--steps", "20", "--resume"])
+    resumed = [x for x in lines if x.startswith("resumed from step")]
+    losses = step_losses(lines)
+    require(resumed == ["resumed from step 15"] and len(losses) == 5,
+            f"resume: {resumed}, {len(losses)} steps")
+    print(f"train: {LM_ARCH} reduced --resume: {resumed[0]}, steps 15-19, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _, lines = run_main(arch + ["--steps", "10", "--grad-compress"])
+    losses = step_losses(lines)
+    require(len(losses) == 10 and losses[-1] < losses[0],
+            f"--grad-compress losses {losses}")
+    print(f"train: {LM_ARCH} reduced --grad-compress (one rank): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    print(f"lm: {label}: {time.perf_counter() - t0:.2f} s")
+    lm_kernel_launches(kernels, label, by_path)
+
+
 def main() -> None:
     import torch
 
@@ -2663,6 +2987,11 @@ def main() -> None:
     # architectures reduced (plain PyTorch: no EHL kernel launches) --------
     lm_full_width(dev, kernels, by_path)
     lm_families(dev, kernels, by_path)
+
+    # -- 10e. LM training: tinyllama-1.1b at full width, then the reduced
+    # families through the launcher (plain PyTorch: no EHL kernel launches)
+    lm_train_full_width(dev, kernels, by_path)
+    lm_train_families(dev, kernels, by_path)
 
     # -- 11. kernel times beside the twins' and the bound ---------------------
     def bound(nbytes: float, ops: float) -> tuple[float, str]:

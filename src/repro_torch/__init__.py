@@ -6,5 +6,6 @@ on torch tensors, with the Hopper kernels of ``kernels`` on the card and
 their plain PyTorch twins on the CPU.  ``serving`` fronts it with engines
 and a batching server.  ``configs``, ``models`` and ``serving.LMServer``
 port the LM serving path (the ten architectures' prefill, cache and
-decode) in plain PyTorch.
+decode) in plain PyTorch; ``optim``, ``data``, ``checkpoint``,
+``distributed.fault`` and ``launch.train`` its training on one device.
 """

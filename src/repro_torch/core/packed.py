@@ -215,16 +215,16 @@ class TraceCounter:
     The port's analogue of the reference's jit trace counter.  Every fold
     and join entry reports its key (entry, device, layout, bucket width or
     slab, batch rows, argmin, distance dtype) with :meth:`see`; a key not
-    seen before bumps ``count`` and ``by_entry[entry]``.  On the card a
+    seen before bumps ``count`` and ``entry_cold_total{entry=}`` in the
+    process-wide registry.  On the card a
     cold key means new allocator segments for that shape (and, once the
     fixed-shape entries are captured as CUDA graphs, a capture), so serving
     code checks that warmup left nothing cold: snapshot ``count``, serve,
     require it unchanged.  Keys hold no artifact identity: the kernels and
     the allocator see shapes, not artifacts.
 
-    Each cold key also lands on ``entry_cold_total{entry=}`` in the
-    process-wide registry, so cold keys show in the exports
-    next to the serving series they perturb (DESIGN.md §12/§13).  Two
+    The registry series put cold keys in the exports next to the serving
+    series they perturb (DESIGN.md §12/§13).  Two
     profiling hooks ride along (DESIGN.md §13): a *thread-local* count
     (:meth:`thread_count`) lets :class:`repro_torch.obs.CompileCapture`
     tell that a call met a cold key without crediting a background build
@@ -235,7 +235,6 @@ class TraceCounter:
 
     def __init__(self):
         self.count = 0
-        self.by_entry: dict[str, int] = {}
         self.profiler = None            # CompileCapture | None
         self._seen: set = set()
         self._tl = threading.local()
@@ -252,7 +251,6 @@ class TraceCounter:
                 return
             self._seen.add(key)
             self.count += 1
-            self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
         self._tl.count = self.thread_count() + 1
         obs.REGISTRY.counter("entry_cold_total", entry=entry).inc()
 

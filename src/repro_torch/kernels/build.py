@@ -9,13 +9,12 @@ at first use, never at import.  A build writes to a private temporary name
 and renames it into place, so processes that build the same source at once
 never load a half-written library.  Within one process, :func:`build` and
 :func:`load` run under one lock, so two threads that meet a kernel first
-at the same moment make one build and one load.  ``BUILDS`` and ``LOADS``
-count the nvcc builds and ``ctypes`` loads per source, so a warmed server
-can check that live traffic built and loaded nothing; the same counts land
-on ``kernel_builds_total{kernel=}`` and ``kernel_loads_total{kernel=}`` in
-the process-wide metrics registry, beside ``kernel_build_seconds_total``
-(each source's wall seconds from the start of its build call to its
-compiler's exit, as the call observes it).
+at the same moment make one build and one load.  Each nvcc build and
+``ctypes`` load adds one to ``kernel_builds_total{kernel=}`` or
+``kernel_loads_total{kernel=}`` in the process-wide metrics registry, so a
+warmed server can check that live traffic built and loaded nothing; beside
+them, ``kernel_build_seconds_total`` (each source's wall seconds from the
+start of its build call to its compiler's exit, as the call observes it).
 """
 
 from __future__ import annotations
@@ -42,8 +41,6 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 # build thread warms kernels beside the serving threads); a plain lock, as
 # it guards no serving state and nests under none
 _LOCK = threading.Lock()
-BUILDS: dict[str, int] = {}     # source name -> nvcc builds in this process
-LOADS: dict[str, int] = {}      # source name -> ctypes loads in this process
 
 
 def nvcc_path() -> str:
@@ -98,7 +95,6 @@ def _build(names) -> dict[str, str]:
     t0 = time.perf_counter()
     jobs = {n: job for n in names if (job := _start(n)) is not None}
     for n in jobs:
-        BUILDS[n] = BUILDS.get(n, 0) + 1
         REGISTRY.counter("kernel_builds_total", kernel=n).inc()
     logs = {}
     for n, (proc, _, _) in jobs.items():
@@ -126,6 +122,5 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 _build((name,))
                 lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
-                LOADS[name] = LOADS.get(name, 0) + 1
                 REGISTRY.counter("kernel_loads_total", kernel=name).inc()
     return lib

@@ -25,21 +25,34 @@ The cache's ``step`` is a Python int, so a decode step reads nothing back
 from the device.  ``decode_step`` leaves its input cache as it was: the
 slabs it writes are copied once a step, each layer then writing its slot
 into the copy.  A step at ``pos >= max_len`` writes the last slot, as the
-reference's clamped ``dynamic_update_slice`` does.  The training half of
-the reference (``loss_fn``, the chunked CE, the MTP head, remat) and its
-sharding hints are not here; ``moe_block`` stands in for the reference's
-``moe_block_ep``, which falls back to it without a mesh.
+reference's clamped ``dynamic_update_slice`` does.
+
+Training: ``loss_fn`` (next-token CE over ``_chunked_ce``'s ``ce_chunk``
+slices, plus DeepSeek's MTP loss at weight 0.3) and ``mtp_logits``.  While
+grad is enabled, ``cfg.remat`` checkpoints each block of ``blocks`` (and
+``"full"`` each encoder block) with ``torch.utils.checkpoint``, and every
+CE chunk is checkpointed; with grad off (prefill, decode) the same ops run
+without it.  A stacked group is split into per-layer views with one
+``unbind`` a leaf, so a backward pass stacks each leaf's gradient once.
+Still left for the distributed slice: the reference's sharding hints,
+``moe_block_ep`` (``moe_block`` stands in, as the reference falls back to
+it without a mesh) and the sequence-sharded decode.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.packed import resolve_device
+from repro_torch.tree import tree_map
 
 from . import layers as ll
 from . import ssm as ssm_mod
@@ -51,14 +64,22 @@ F32_LEAVES = frozenset({"router", "A_log", "dt_bias", "D", "state"})
 _READ_ONLY = frozenset({"xk", "xv"})
 
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a nested dict, structure kept."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
 def _layer(tree, l: int):
     return tree_map(lambda a: a[l], tree)
+
+
+def _unstack(tree) -> list:
+    """Per-layer views of a stacked ``[L, ...]`` group, one ``unbind`` a
+    leaf (its backward stacks the layers' gradients once; indexing each
+    layer would scatter L full-size gradients)."""
+    per: list = []
+    for k, v in tree.items():
+        parts = _unstack(v) if isinstance(v, dict) else v.unbind(0)
+        if not per:
+            per = [{} for _ in parts]
+        for layer, part in zip(per, parts):
+            layer[k] = part
+    return per
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +271,46 @@ def _block_fwd(cfg: ModelConfig, p, x, positions, window, moe: bool,
     return x
 
 
+# matmuls with no batch dims (``x @ w`` folds to aten.mm): what jax's
+# dots_with_no_batch_dims_saveable keeps for the backward pass
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(body, policy=None):
+    """``body`` under activation checkpointing while grad is enabled (a
+    backward pass will need it); as it is otherwise.  ``policy``: a
+    selective-checkpoint policy, None to save only the inputs."""
+    kw = {} if policy is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, policy)}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+    return run
+
+
+def _remat(cfg: ModelConfig, body):
+    """Activation-checkpoint policy for the block stack.
+
+    'full'  — save only the block's input; recompute everything;
+    'dots'  — save the matmul outputs with no batch dims: the backward
+              skips recomputing them;
+    'none'  — no checkpointing.
+    """
+    if cfg.remat == "full":
+        return _checkpointed(body)
+    if cfg.remat == "dots":
+        return _checkpointed(body, _save_dots)
+    return body
+
+
 def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
     if not cfg.moe:
         return 0
@@ -276,8 +337,8 @@ def encode(cfg: ModelConfig, params, enc_frames):
     x = enc_frames + pe[None].to(enc_frames.dtype)
     c2 = dataclasses.replace(cfg, act="gelu")
     H, hd = cfg.n_heads, cfg.head_dim
-    for l in range(cfg.enc_layers):
-        bp = _layer(eb, l)
+
+    def enc_block(x, bp):
         h = ll.rmsnorm(x, bp["ln1"], cfg.norm_eps)
         q = (h @ bp["wq"]).reshape(B, S, H, hd)
         k = (h @ bp["wk"]).reshape(B, S, H, hd)
@@ -287,7 +348,13 @@ def encode(cfg: ModelConfig, params, enc_frames):
                                kv_chunk=cfg.attn_kv_chunk)
         x = x + o.reshape(B, S, -1) @ bp["wo"]
         h2 = ll.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + ll.mlp(c2, bp["mlp"], h2)
+        return x + ll.mlp(c2, bp["mlp"], h2)
+
+    # the reference checkpoints its scanned encoder under "full" only
+    if cfg.remat == "full" and not cfg.unroll_layers:
+        enc_block = _checkpointed(enc_block)
+    for bp in _unstack(eb):
+        x = enc_block(x, bp)
     return ll.rmsnorm(x, params["encoder"]["norm"], cfg.norm_eps)
 
 
@@ -305,18 +372,20 @@ def _trunk(cfg: ModelConfig, params, tokens, enc_frames, positions, embeds):
 
     off = 0
     if "dense_blocks" in params:
-        db = params["dense_blocks"]
-        off = db["ln1"].shape[0]
-        for l in range(off):
-            x = _block_fwd(cfg, _layer(db, l), x, positions,
-                           _windows(cfg, 1, l)[0], moe=False, capacity=0,
-                           enc_out=enc_out)
+        db = _unstack(params["dense_blocks"])
+        off = len(db)
+        for l, bp in enumerate(db):
+            x = _block_fwd(cfg, bp, x, positions, _windows(cfg, 1, l)[0],
+                           moe=False, capacity=0, enc_out=enc_out)
 
-    blocks = params["blocks"]
-    Lm = blocks["ln1"].shape[0]
-    for l, w in enumerate(_windows(cfg, Lm, off)):
-        x = _block_fwd(cfg, _layer(blocks, l), x, positions, w, moe=cfg.moe,
-                       capacity=cap, enc_out=enc_out)
+    def body(x, bp, w):
+        return _block_fwd(cfg, bp, x, positions, w, moe=cfg.moe,
+                          capacity=cap, enc_out=enc_out)
+
+    bfn = _remat(cfg, body)
+    blocks = _unstack(params["blocks"])
+    for bp, w in zip(blocks, _windows(cfg, len(blocks), off)):
+        x = bfn(x, bp, w)
     return x
 
 
@@ -352,6 +421,71 @@ def _unembed(cfg, params, x):
     if cfg.softcap_logits > 0:
         logits = torch.tanh(logits / cfg.softcap_logits) * cfg.softcap_logits
     return logits
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+def _chunked_ce(cfg, params, hidden, targets, mask):
+    """Mean CE over valid targets, computed in ``ce_chunk``-token slices,
+    each checkpointed while grad is enabled, so one [B, chunk, V] float32
+    logits tile is the only vocab-sized live tensor; the backward pass
+    recomputes it.  S is padded to whole chunks with mask 0."""
+    B, S, d = hidden.shape
+    c = min(cfg.ce_chunk, S)
+    pad = (-S) % c
+    h = F.pad(hidden, (0, 0, 0, pad))
+    t = F.pad(targets, (0, pad)).long()
+    m = F.pad(mask, (0, pad))
+
+    def body(hc, tc, mc):
+        lp = torch.log_softmax(_unembed(cfg, params, hc), dim=-1)
+        nll = -torch.gather(lp, -1, tc[..., None])[..., 0]
+        return torch.sum(nll * mc)
+
+    chunk = _checkpointed(body)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S + pad, c):
+        total = total + chunk(h[:, i:i + c], t[:, i:i + c], m[:, i:i + c])
+    return total / torch.clamp(mask.sum(), min=1)
+
+
+def _mtp_hidden(cfg, params, hidden, tokens):
+    """DeepSeek's depth-1 MTP block over [h_t ; emb(t+1)], final-normed:
+    [B, S-1, d] aligned to targets shifted by 2."""
+    B, S = tokens.shape
+    emb_next = params["embed"][tokens[:, 1:]]              # [B,S-1,d]
+    h = torch.cat([hidden[:, :-1], emb_next], dim=-1) @ params["mtp_proj"]
+    bp = _layer(params["mtp_block"], 0)
+    pos = torch.arange(S - 1, device=h.device).expand(B, S - 1)
+    h = _block_fwd(cfg, bp, h, pos, 0, moe=False, capacity=0)
+    return ll.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+
+def mtp_logits(cfg: ModelConfig, params, hidden, tokens):
+    """DeepSeek MTP head: depth-1 extra block predicting token t+2 from
+    [h_t ; emb(t+1)]; ``hidden`` is the pre-norm trunk output.  Returns
+    logits aligned to targets shifted by 2."""
+    return _unembed(cfg, params, _mtp_hidden(cfg, params, hidden, tokens))
+
+
+def loss_fn(cfg: ModelConfig, params, tokens, enc_frames=None,
+            mtp_weight: float = 0.3):
+    """Next-token CE (+ DeepSeek's MTP auxiliary loss when configured),
+    through the chunked CE: no [B, S, V] logits tensor is made."""
+    hidden = _trunk(cfg, params, tokens, enc_frames, None, None)
+    hn = ll.rmsnorm(hidden, params["final_norm"], cfg.norm_eps)
+    tgt = tokens[:, 1:]
+    mask = torch.ones(tgt.shape, dtype=torch.float32, device=tgt.device)
+    loss = _chunked_ce(cfg, params, hn[:, :-1], tgt, mask)
+    if cfg.mtp:
+        h2 = _mtp_hidden(cfg, params, hidden, tokens)
+        tgt2 = tokens[:, 2:]
+        m2 = torch.ones(tgt2.shape, dtype=torch.float32, device=tgt2.device)
+        loss = loss + mtp_weight * _chunked_ce(cfg, params, h2[:, :-1],
+                                               tgt2, m2)
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -236,6 +236,11 @@ class MetricsRegistry:
         return [m for m in self.series(name)
                 if want.issubset(set(m.labels))]
 
+    def total(self, name: str, **labels) -> float:
+        """Sum of the values of the series :meth:`find` returns (0 when
+        there is none): a counter family read across its labels."""
+        return sum(m.value for m in self.find(name, **labels))
+
     def names(self) -> List[str]:
         with self._lock:
             return sorted({n for (n, _) in self._metrics})

@@ -186,11 +186,11 @@ class _Staged:
 class DeviceEngine(QueryEngine):
     """Batched engine over a packed layout on its device.
 
-    ``rescue_batches``/``rescue_rows``/``rescue_seconds`` count the argmin
-    batches a quantized artifact rescued, the ambiguous rows in them and
-    the host seconds the rescues took; each rescue also lands on
-    ``rescue_batches_total{engine=}`` and ``rescue_ms{engine=}`` in the
-    process-wide registry (the span sees the rescue inside ``dispatch``).
+    Each argmin batch a quantized artifact rescues adds one to
+    ``rescue_batches_total{engine=}`` and its host milliseconds to
+    ``rescue_ms{engine=}`` in the process-wide registry (the span sees the
+    rescue inside ``dispatch``); ``rescue_rows``/``rescue_seconds`` count
+    the engine's own ambiguous rows and host seconds.
 
     On a CUDA artifact the split-phase path stages through a pool of
     pinned slots per batch shape (a slot is reused only once its results
@@ -212,7 +212,6 @@ class DeviceEngine(QueryEngine):
         self.index = index
         self.quantized = index.layout.quantized
         self.bucketed = isinstance(index, BucketedIndex)
-        self.rescue_batches = 0
         self.rescue_rows = 0
         self.rescue_seconds = 0.0
         if self.bucketed:
@@ -278,7 +277,6 @@ class DeviceEngine(QueryEngine):
                                  res[1], use_kernels=self.use_kernels)
             out = splice_rescue((*res[:5], amb), exact)
         self.rescue_seconds += sw.seconds
-        self.rescue_batches += 1
         self.rescue_rows += int(np.count_nonzero(amb))
         obs.REGISTRY.counter("rescue_batches_total", engine=self.name).inc()
         obs.REGISTRY.histogram("rescue_ms", engine=self.name).record(

@@ -96,7 +96,8 @@ class ShardedQueryEngine(QueryEngine):
     one-card machine; ``cuda`` raises without a card).  ``backend``:
     ``cuda`` (the Hopper kernels; their twins on CPU tensors) or ``torch``
     (the twins).  ``rescue_batches``/``rescue_rows``/``rescue_seconds``
-    count a quantized artifact's argmin rescues, as ``DeviceEngine`` does.
+    count a quantized artifact's argmin rescues (``DeviceEngine`` counts
+    its batches in the registry's ``rescue_batches_total``).
     """
 
     name = "sharded"

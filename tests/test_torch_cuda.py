@@ -29,8 +29,18 @@ from repro_torch.kernels.label_join import label_join_rowmin
 from repro_torch.kernels.segvis import _launch as segvis_launch
 from repro_torch.kernels.segvis import segvis
 from repro_torch.kernels.segvis_tiles import segvis_tiles
+from repro_torch.obs import REGISTRY
 
 pytestmark = pytest.mark.cuda
+
+
+def cold_counts() -> tuple:
+    """(cold shape keys, nvcc builds, ctypes loads) so far in this
+    process; the builds and loads from the registry's series."""
+    from repro_torch.core.packed import TRACES
+
+    return (TRACES.count, REGISTRY.total("kernel_builds_total"),
+            REGISTRY.total("kernel_loads_total"))
 
 
 @pytest.fixture(scope="module")
@@ -338,9 +348,10 @@ def test_quantized_cuda_engine_equals_torch_engine(card, layout):
     s, t = qs.s.astype(np.float32), qs.t.astype(np.float32)
     seg, join = segvis.launches, label_join_rowmin.launches
     eng = CudaEngine(qbx)
+    rescued0 = REGISTRY.total("rescue_batches_total", engine=eng.name)
     a = PathServer(eng, batch_size=64)._dispatch(s, t, True)
     assert segvis.launches > seg and label_join_rowmin.launches > join
-    assert eng.rescue_batches > 0
+    assert REGISTRY.total("rescue_batches_total", engine=eng.name) > rescued0
     b = PathServer(TorchEngine(qbx), batch_size=64)._dispatch(s, t, True)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
@@ -611,14 +622,14 @@ def test_warmup_leaves_nothing_cold_on_card(card, rooms_s, kind):
     tail, ``query_paths``, the async path, the rescue on bf16) builds and
     loads no kernel and meets no cold shape; a new batch size does."""
     from repro_torch.core.packed import TRACES
-    from repro_torch.kernels import build
     from repro_torch.serving import CudaEngine, PathServer
 
     idx, s, t = rooms_s
     eng = CudaEngine(_artifact(idx, kind, card))
     srv = PathServer(eng, batch_size=48)
     srv.warmup(paths=True)
-    before = (TRACES.count, dict(build.BUILDS), dict(build.LOADS))
+    before = cold_counts()
+    rescued0 = REGISTRY.total("rescue_batches_total", engine=eng.name)
     segments = torch.cuda.memory_stats()["segment.all.allocated"]
     srv.query(s, t)
     srv.query(s[:7], t[:7])
@@ -629,8 +640,9 @@ def test_warmup_leaves_nothing_cold_on_card(card, rooms_s, kind):
         tk.result(timeout=120)
     srv.stop_async()
     if kind == "bf16":
-        assert eng.rescue_batches > 0
-    after = (TRACES.count, dict(build.BUILDS), dict(build.LOADS))
+        assert REGISTRY.total("rescue_batches_total",
+                              engine=eng.name) > rescued0
+    after = cold_counts()
     assert after == before, (before, after)
     print(f"allocator segments {segments} -> "
           f"{torch.cuda.memory_stats()['segment.all.allocated']}")
@@ -803,8 +815,8 @@ def test_two_threads_load_a_cold_kernel_once_on_card(card, tmp_path,
 
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build, "_LOADED", {})
-    monkeypatch.setattr(build, "BUILDS", {})
-    monkeypatch.setattr(build, "LOADS", {})
+    builds0, loads0 = (REGISTRY.total(n, kernel="label_join") for n in
+                       ("kernel_builds_total", "kernel_loads_total"))
     rng = np.random.default_rng(3)
     rows = [torch.from_numpy(a).to(card) for a in (
         np.sort(rng.integers(0, 9, (4, 128)), axis=1).astype(np.int32),
@@ -828,8 +840,10 @@ def test_two_threads_load_a_cold_kernel_once_on_card(card, tmp_path,
     for th in threads:
         th.join(timeout=600)
     assert not errors, errors
-    assert build.BUILDS == {"label_join": 1}
-    assert build.LOADS == {"label_join": 1}
+    assert REGISTRY.total("kernel_builds_total", kernel="label_join") == \
+        builds0 + 1
+    assert REGISTRY.total("kernel_loads_total", kernel="label_join") == \
+        loads0 + 1
     want = ref.label_join_rowmin_ref(*rows)
     assert all(torch.equal(o, want) for o in out) and len(out) == 2
 
@@ -917,8 +931,6 @@ def test_sharded_warmup_leaves_nothing_cold_on_card(card, rooms_s, layout):
     (every routing key, a ragged tail, ``query_paths``, the batcher, the
     rescue and the quantized wire on bf16) builds and loads no kernel and
     meets no cold shape."""
-    from repro_torch.core.packed import TRACES
-    from repro_torch.kernels import build
     from repro_torch.serving import PathServer
     from repro_torch.sharding import ShardedQueryEngine
 
@@ -926,7 +938,7 @@ def test_sharded_warmup_leaves_nothing_cold_on_card(card, rooms_s, layout):
     eng = ShardedQueryEngine(_sharded(idx, layout, card), backend="cuda")
     srv = PathServer(eng, batch_size=48)
     srv.warmup(paths=True)
-    before = (TRACES.count, dict(build.BUILDS), dict(build.LOADS))
+    before = cold_counts()
     srv.query(s, t)
     srv.query(s[:7], t[:7])
     srv.query_paths(s[:40], t[:40], host_index=idx)
@@ -937,7 +949,7 @@ def test_sharded_warmup_leaves_nothing_cold_on_card(card, rooms_s, layout):
     srv.stop_async()
     if layout == "bf16":
         assert eng.rescue_batches > 0
-    after = (TRACES.count, dict(build.BUILDS), dict(build.LOADS))
+    after = cold_counts()
     assert after == before, (before, after)
     assert len(srv.stats.per_shard) == 4
 
@@ -1074,3 +1086,70 @@ def test_lm_server_on_card_equals_cpu(full_f32):
         assert srv.stats.queries == 16
     a, b = got.values()
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v3-671b",
+                                  "mamba2-780m"])
+def test_lm_reduced_train_step_card_equals_cpu(full_f32, arch):
+    """One ``build_train_step`` step on the card equals the CPU's on the
+    same float32 parameters and batch: the loss, the gradient norm and
+    the new moments within rtol 1e-4 and atol 1e-5 times the larger of 1
+    and the leaf's largest magnitude (5e-5 on mamba2, as the CPU gradient
+    tests); the new parameters within rtol 1e-6 and atol 1e-6 times it,
+    except where the first moment is under 1e-6 (there the first AdamW
+    step's sign-like update is held within 2 lr, as the CPU integration
+    test does)."""
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten
+
+    cfg, params, toks, _ = _lm_case(arch, 2, 32)
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=16)
+    step = build_train_step(cfg, ocfg)
+    atol = 5e-5 if arch == "mamba2-780m" else 1e-5
+    out = []
+    for dev in ("cpu", full_f32):
+        p = T.to_device(params, dev)
+        out.append(step(p, adamw.init_state(p, ocfg), toks.to(dev)))
+    (wp, ws, wm), (gp, gs, gm) = out
+
+    def close(got, want, rtol, atol_):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, rtol=rtol,
+                                   atol=atol_ * scale)
+
+    for k in ("loss", "grad_norm", "lr"):
+        close(gm[k], wm[k], 1e-4, atol)
+    for k, w in flatten({"m": ws["m"], "v": ws["v"]}).items():
+        close(flatten({"m": gs["m"], "v": gs["v"]})[k], w, 1e-4, atol)
+    lr = float(wm["lr"])
+    for k, w in flatten(wp).items():
+        g = flatten(gp)[k].cpu()
+        flat_m = flatten(ws["m"])[k].abs() < 1e-6
+        close(g[~flat_m], w[~flat_m], 1e-6, 1e-6)
+        off = (g[flat_m] - w[flat_m]).abs()
+        assert off.numel() == 0 or float(off.max()) <= 2 * lr, k
+
+
+def test_bf16_checkpoint_round_trip_on_card(card, tmp_path):
+    """bf16 parameters saved from the card (their bits as ``|V2``,
+    ``bfloat16`` in the manifest) restore onto the card bit for bit."""
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten
+
+    cfg = get_config("tinyllama-1.1b").reduced()
+    params = T.init_params(cfg, 3, dtype=torch.bfloat16, device=card)
+    tree = {"p": params, "o": adamw.init_state(params, adamw.AdamWConfig())}
+    store.save(str(tmp_path), 3, tree)
+    out = store.restore(str(tmp_path), store.latest_step(str(tmp_path)),
+                        tree, device=card)
+    for k, v in flatten(tree).items():
+        got = flatten(out)[k]
+        assert got.device == v.device and got.dtype == v.dtype, k
+        if v.dtype == torch.bfloat16:
+            got, v = got.view(torch.int16), v.view(torch.int16)
+        assert torch.equal(got, v), k

@@ -232,6 +232,7 @@ def test_load_builds_and_loads_once_across_threads(tmp_path, monkeypatch):
     import threading
 
     from repro_torch.kernels import build
+    from repro_torch.obs import REGISTRY
 
     nvcc = tmp_path / "nvcc"
     nvcc.write_text(FAKE_NVCC.replace("cp ", "sleep 0.3; cp "))
@@ -243,9 +244,9 @@ def test_load_builds_and_loads_once_across_threads(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
     monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(build, "_LOADED", {})
-    monkeypatch.setattr(build, "BUILDS", {})
-    monkeypatch.setattr(build, "LOADS", {})
     monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    builds0, loads0 = (REGISTRY.total(n, kernel="a") for n in
+                       ("kernel_builds_total", "kernel_loads_total"))
     start = threading.Barrier(2)
     got = []
 
@@ -259,6 +260,7 @@ def test_load_builds_and_loads_once_across_threads(tmp_path, monkeypatch):
     for th in threads:
         th.join(timeout=30)
     assert len(got) == 2 and got[0] is got[1]
-    assert build.BUILDS == {"a": 1} and build.LOADS == {"a": 1}
+    assert REGISTRY.total("kernel_builds_total", kernel="a") == builds0 + 1
+    assert REGISTRY.total("kernel_loads_total", kernel="a") == loads0 + 1
     assert build.library_path("a").read_text() == "// a\n"
     assert not list((tmp_path / "out").glob("*.tmp"))

@@ -2,7 +2,7 @@
 and the ``label_join`` kernel entry, on the CPU.
 
 * Cold entries: with the capture installed before a cold ``warmup``,
-  ``entry_cold_total{entry}`` grows as ``TRACES.by_entry`` does and live
+  ``entry_cold_total{entry}`` grows as ``TRACES.count`` does and live
   traffic adds nothing; ``disable_profile`` stops the capture; a
   background thread's cold keys are never credited to a foreground call.
 * ``kernel_cost`` against hand counts, and the capture's cost counters.
@@ -74,7 +74,8 @@ def _grown(reg, name, before) -> dict:
 @pytest.mark.parametrize("layout,batch", [("f32", 23), ("bf16", 21)])
 def test_cold_entries_follow_trace_counter(rooms_s, layout, batch):
     """A warmup at a batch size no other test uses meets cold keys; each
-    entry's ``entry_cold_total`` equals its growth in ``TRACES.by_entry``,
+    entry's ``entry_cold_total`` grows, by as many keys in all as
+    ``TRACES.count``,
     with wall seconds and output bytes beside it; live traffic adds 0."""
     idx, s, t = rooms_s
     reg = obs.MetricsRegistry()
@@ -84,13 +85,11 @@ def test_cold_entries_follow_trace_counter(rooms_s, layout, batch):
         bx = pack_bucketed(idx, layout=slab_layout(layout), device="cpu")
         srv = PathServer(bx, batch_size=batch, backend="cuda", device="cpu",
                          telemetry=obs.Telemetry.off(registry=reg))
-        before = dict(TRACES.by_entry)
+        count0 = TRACES.count
         cold_before = _series(obs.REGISTRY, "entry_cold_total")
         srv.warmup(paths=True)
-        grown = {e: n - before.get(e, 0) for e, n in TRACES.by_entry.items()
-                 if n > before.get(e, 0)}
         cold = _grown(obs.REGISTRY, "entry_cold_total", cold_before)
-        assert cold and cold == grown
+        assert cold and sum(cold.values()) == TRACES.count - count0
         assert set(cold) <= set(packed.SERVING_ENTRIES)
         assert {"fold_endpoint", "join_endpoints"} <= set(cold)
         if layout == "bf16":
@@ -121,7 +120,6 @@ def test_trace_counter_records_cold_keys_in_its_registry():
     counter.see("fold_endpoint", "cpu", 8)
     counter.see("join_masked", "cpu", 7)
     assert counter.count == 3 and counter.thread_count() == 3
-    assert counter.by_entry == {"fold_endpoint": 2, "join_masked": 1}
     assert _grown(obs.REGISTRY, "entry_cold_total", before) == \
         {"fold_endpoint": 2, "join_masked": 1}
 
@@ -226,7 +224,7 @@ def test_kernel_cost_counters_follow_the_installed_capture():
 
 def test_build_and_load_series_follow_fake_nvcc(tmp_path, monkeypatch):
     """Each nvcc build and ctypes load adds one to its kernel's series in
-    the process-wide registry, beside ``BUILDS``/``LOADS``; build seconds
+    the process-wide registry; build seconds
     grow with every build."""
     from repro_torch.kernels import build
 
@@ -241,8 +239,6 @@ def test_build_and_load_series_follow_fake_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
     monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(build, "_LOADED", {})
-    monkeypatch.setattr(build, "BUILDS", {})
-    monkeypatch.setattr(build, "LOADS", {})
     monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
 
     def series(name):
@@ -258,18 +254,16 @@ def test_build_and_load_series_follow_fake_nvcc(tmp_path, monkeypatch):
                 if v != base[name].get(k, 0)}
 
     build.build(("fake_a", "fake_b"))
-    assert grown("kernel_builds_total") == build.BUILDS == \
-        {"fake_a": 1, "fake_b": 1}
+    assert grown("kernel_builds_total") == {"fake_a": 1, "fake_b": 1}
     secs = grown("kernel_build_seconds_total")
     assert set(secs) == {"fake_a", "fake_b"}
     assert all(v >= 0.05 for v in secs.values())
     build.load("fake_a")
     build.load("fake_a")
-    assert grown("kernel_loads_total") == build.LOADS == {"fake_a": 1}
+    assert grown("kernel_loads_total") == {"fake_a": 1}
     (csrc / "fake_a.cu").write_text("// a, edited\n")
     build.build(("fake_a", "fake_b"))
-    assert grown("kernel_builds_total") == build.BUILDS == \
-        {"fake_a": 2, "fake_b": 1}
+    assert grown("kernel_builds_total") == {"fake_a": 2, "fake_b": 1}
 
 
 # ------------------------------------------------------- label_join entry

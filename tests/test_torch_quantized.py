@@ -25,6 +25,7 @@ from repro.core.compression import \
 from repro.core.grid import build_ehl as ref_build_ehl
 from repro.kernels import ref as jref
 from repro.kernels.label_join import label_join_rowmin as pallas_rowmin
+from repro_torch import obs
 from repro_torch.core import packed as port_packed
 from repro_torch.core.compression import (compress_to_device_budget,
                                           compress_to_fraction)
@@ -445,13 +446,16 @@ def test_quantized_engine_winners_equal_f32_engine(layout, engine_cls,
     assert eng.quantized
     srv = PathServer(eng, batch_size=64)
     srv.warmup(paths=True)
-    eng.rescue_batches = eng.rescue_rows = 0
+    eng.rescue_rows = 0
+    rescued0 = obs.REGISTRY.total("rescue_batches_total", engine=eng.name)
     got = srv._dispatch(s, t, want_argmin=True)
     want = PathServer(engine_cls(port_bx["f32"]), batch_size=64)._dispatch(
         s, t, want_argmin=True)
     for a, b in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(a, b)
-    assert eng.rescue_batches > 0 and eng.rescue_rows >= eng.rescue_batches
+    rescued = obs.REGISTRY.total("rescue_batches_total",
+                                 engine=eng.name) - rescued0
+    assert rescued > 0 and eng.rescue_rows >= rescued
     other = (CudaEngine if engine_cls is TorchEngine else TorchEngine)
     twin = PathServer(other(port_bx[layout]), batch_size=64)._dispatch(
         s, t, want_argmin=True)

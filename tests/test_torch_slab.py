@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from repro.core import packed as ref_packed
 from repro.core.compression import compress_to_fraction as ref_compress
 from repro.core.grid import build_ehl as ref_build_ehl
+from repro_torch import obs
 from repro_torch.core import packed as port_packed
 from repro_torch.core.compression import compress_to_fraction
 from repro_torch.core.grid import build_ehl
@@ -268,8 +269,10 @@ def test_warmup_leaves_nothing_cold(port_index, queries, kind):
     srv = PathServer(eng, batch_size=16)
     srv.warmup(paths=True)
     c0 = port_packed.TRACES.count
-    assert {"fold_endpoint", "join_endpoints"} <= \
-        set(port_packed.TRACES.by_entry)
+    assert {"fold_endpoint", "join_endpoints"} <= {
+        dict(m.labels)["entry"] for m in obs.REGISTRY.series(
+            "entry_cold_total") if m.value > 0}
+    rescued0 = obs.REGISTRY.total("rescue_batches_total", engine=eng.name)
     s, t = queries
     srv.query(s, t)                                  # every bucket present
     srv.query(s[:7], t[:7])                          # ragged tail (padded)
@@ -279,7 +282,8 @@ def test_warmup_leaves_nothing_cold(port_index, queries, kind):
     tk.result(timeout=60)
     srv.stop_async()
     if layout != "f32":
-        assert eng.rescue_batches > 0
+        assert obs.REGISTRY.total("rescue_batches_total",
+                                  engine=eng.name) > rescued0
     assert port_packed.TRACES.count == c0, \
         "serving traffic hit a shape warmup did not"
     PathServer(eng, batch_size=13).query(s[:3], t[:3])
