@@ -137,6 +137,41 @@ Then two LM training paths (``models.transformer.loss_fn``, ``optim``,
   loss falls), a ``--resume`` run from step 15, and ``--grad-compress`` on
   one rank (the loss falls).
 
+After the sharded paths, a tenth EHL path: data-parallel serving,
+``PathServer(CudaEngine(rooms-M dense), mesh=(cuda:0, cuda:0),
+batch_sharding="rows")``, each batch of 256 as two row blocks on the one
+card's replica, driven like the others (answers == the dense path's bit
+for bit, nothing cold, both kernels launched, no twin, ``start_async``
+refused).  Then the distributed half on one card (plain PyTorch, no EHL
+kernel launched; every mesh is one NCCL rank, so multi-rank traffic is
+not exercised here: it is held on the CPU over gloo by the tests):
+
+* tinyllama-1.1b trained on a ("data", "model") mesh: DTensor parameters
+  from ``param_shardings``, batches from ``global_batch_arrays``; one
+  step's loss and gradients beside the one-device step's (f32, TF32 off;
+  rtol 1e-4 + atol 1e-4 x each leaf's largest |value|, bit-equality
+  printed), then 4 steps in f32 and in bf16 beside the one-device steps of
+  the same seed and batches (losses within rtol 1e-5 / 1e-2), ms per step,
+  tokens/s, peak bytes, one profiled step each; a bf16 checkpoint saved
+  and restored with ``restore(mesh=)``, leaf bits equal;
+* ``decode_attention_dist`` at tinyllama's decode width (B=8, Smax=2048,
+  H=32, K=4, hd=64, bf16), three (pos, window, softcap) cases, against
+  ``decode_attention`` plus the slot write (outputs within rtol 1.6e-2 +
+  atol 1e-3, caches bit for bit), times beside;
+* ``moe_block_ep`` for one llama4-scout-17b-a16e MoE layer at its
+  published width (4278517760 bytes of bf16 weights, 4096 tokens) against
+  ``moe_block`` at the same capacity: forward and the weights' gradients,
+  two all-to-alls counted, times beside;
+* ``pipeline_forward``, one stage over tinyllama's 22 layers (f32, 4
+  microbatches) against ``forward_hidden`` (rtol 1e-4 + atol 1e-4 x
+  scale);
+* the fake-rank dry run (``python -m repro_torch.launch.dryrun``, one
+  process a cell, started together): tinyllama-1.1b ``train_4k`` and
+  nemotron-4-340b ``decode_32k`` on the 256-rank pod mesh (per-rank
+  bytes, peak live bytes, FLOPs per rank, collectives);
+* one line saying that no multi-rank NCCL run was possible when the
+  machine has fewer than two cards.
+
 Before the adaptive path, the f16 layout is checked once (answers only),
 and a fresh rooms-M build is merged to 0.6x the f32 artifact's device
 bytes under the bf16 layout (``compress_to_device_budget``) and served.  ``label_join_rowmin``
@@ -255,6 +290,33 @@ LM_FAMILY_ATOL = {"mamba2-780m": 5e-5}
 F32_PEAK_FLOPS, BF16_PEAK_FLOPS = 67e12, 989e12
 # device kernel names of the cuBLAS/CUTLASS matmuls (lower case)
 GEMM_KERNEL_TAGS = ("gemm", "xmma", "cutlass", "nvjet")
+# the distributed half on a one-rank mesh: tinyllama-1.1b trained on a
+# ("data", "model") NCCL mesh at B=8, S=512 beside the one-device step of
+# the same seed and batches (MESH_STEPS steps, f32 with TF32 off then bf16
+# parameters); its losses within MESH_LOSS_RTOL of the one-device step's
+# and one step's gradients within LM_GRAD_RTOL plus LM_GRAD_ATOL times each
+# leaf's largest |value| (tree_errors), bit-equality reported
+MESH_STEPS = 4
+MESH_LOSS_RTOL = {"f32": 1e-5, "bf16": 1e-2}
+# decode_attention_dist at tinyllama's decode width, bf16, against
+# decode_attention plus the slot write: (pos, window, softcap) cases as in
+# tests/test_distributed_exec.py; outputs within 2 bf16 ulps (rtol
+# 1.6e-2) plus atol 1e-3, the written caches bit for bit
+FLASH_SHAPE = dict(B=8, Smax=2048, H=32, K=4, hd=64)
+FLASH_CASES = ((1500, 0, 0.0), (700, 256, 30.0), (2047, 0, 50.0))
+BF16_RTOL, BF16_ATOL = 1.6e-2, 1e-3
+# one llama4-scout-17b-a16e MoE layer at its published width (d_model
+# 5120, 16 experts, top-1, moe_d_ff 8192, one shared expert) on
+# MOE_TOKENS = 8 x 512 tokens, bf16
+MOE_ARCH, MOE_SHAPE = "llama4-scout-17b-a16e", (8, 512)
+# the pipeline: tinyllama's full stack as one stage, f32 (TF32 off), B=8,
+# S=512, 4 microbatches, against forward_hidden (rtol 1e-4 and atol 1e-4
+# times the hidden state's largest |value|: other matmul shapes per
+# microbatch)
+PIPE_MICRO = 4
+# the fake-rank dry run's cells (python -m repro_torch.launch.dryrun)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "pod"),
+                ("nemotron-4-340b", "decode_32k", "pod"))
 
 
 def card_line() -> str:
@@ -2564,6 +2626,428 @@ def lm_train_full_width(dev, kernels: dict, by_path: dict) -> None:
     lm_kernel_launches(kernels, label, by_path)
 
 
+def batch_sharded_path(bx, index, dense_got, s, t, qs, kernels, twins,
+                       dev, by_path: dict) -> None:
+    """Data-parallel EHL serving: ``PathServer(mesh=(cuda:0, cuda:0),
+    batch_sharding="rows")`` on the rooms-M dense artifact, every batch two
+    row blocks on the one card's replica, driven like the other paths:
+    answers == the dense server's bit for bit, nothing cold on live
+    traffic, kernels launched and no twin called."""
+    from repro_torch.serving import CudaEngine, PathServer, TorchEngine
+    from repro_torch.serving.engine import BATCH_ROWS
+
+    label = f"{MAP} batch-sharded"
+    mesh = (dev, dev)
+    print(f"path: {label} (mesh {[str(d) for d in mesh]}, batch {BATCH} "
+          f"in {len(mesh)} row blocks of {BATCH // len(mesh)})")
+    srv = PathServer(CudaEngine(bx), batch_size=BATCH, mesh=mesh,
+                     batch_sharding=BATCH_ROWS)
+    run = drive(srv, s, t, index, kernels, twins, label)
+    by_path[label] = run["launches"]
+    require(run["launches"]["segvis"] > 0
+            and run["launches"]["label_join_rowmin"] > 0,
+            f"a kernel of the {label} path never launched: {run['launches']}")
+    twin = PathServer(TorchEngine(bx), batch_size=BATCH, mesh=mesh,
+                      batch_sharding=BATCH_ROWS)
+    got = check_answers(srv, twin, run, s, t, index, qs)
+    for name, a, b in zip(ANSWERS, got, dense_got):
+        require(np.array_equal(a, b), f"{label} vs dense output {name}")
+    try:
+        srv.start_async()
+        require(False, "start_async ran under batch_sharding")
+    except ValueError:
+        pass
+    print(f"check: {label} == dense CudaEngine on all 5 outputs "
+          f"({len(s)} queries); start_async refused")
+
+
+def mesh_step_stats(step, params, state, dcfg, batch_of, dev) -> dict:
+    """MESH_STEPS steps, then one profiled: losses, ms per step (median
+    after the first), peak bytes, the profiled step's wall and device ms."""
+    import torch
+
+    from repro_torch.launch.train import host_float
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = [], []
+    for i in range(MESH_STEPS):
+        batch = batch_of(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(host_float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        require(np.isfinite(losses[-1]), f"mesh train step {i}: loss "
+                f"{losses[-1]}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    batch = batch_of(MESH_STEPS)
+    torch.cuda.synchronize()
+    with profiler() as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = sum(us for _, us in device_times(prof).values()) / 1e3
+    return dict(params=params, losses=losses, ms=float(np.median(ms[1:])),
+                first_ms=ms[0], peak=peak, wall=wall, busy=busy)
+
+
+def lm_mesh_train(dev, kernels: dict, by_path: dict) -> None:
+    """tinyllama-1.1b trained on a one-rank NCCL ("data", "model") mesh:
+    DTensor parameters placed by ``param_shardings``, batches from
+    ``global_batch_arrays``; losses and one step's gradients against the
+    one-device step on the same seed and batches; then a checkpoint of the
+    mesh parameters restored with ``restore(mesh=)``, leaf bits equal."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, global_batch_arrays,
+                                           synthetic_batch)
+    from repro_torch.distributed.sharding import (batch_spec, distribute,
+                                                  param_shardings,
+                                                  undistribute)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import (build_train_step, loss_and_grads,
+                                          on_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten
+
+    full_f32_matmuls()
+    cfg = dataclasses.replace(get_config(LM_ARCH), remat="full",
+                              ce_chunk=512)
+    mesh = make_host_mesh(device=dev)
+    label = f"{LM_ARCH} mesh train"
+    print(f"path: {label} (mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+          f" on NCCL, one rank; full width, B={LM_TRAIN_BATCH}, "
+          f"S={LM_TRAIN_SEQ}, seed {LM_SEED})")
+    for k in kernels.values():
+        k.launches = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    p32 = T.init_params(cfg, gen, dtype=torch.float32, device=dev)
+    shard = param_shardings(p32, mesh)
+    bspec = batch_spec(mesh)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                      global_batch=LM_TRAIN_BATCH, seed=LM_SEED)
+    ocfg = adamw.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=5,
+                             total_steps=LM_TRAIN_STEPS)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+
+    # one step's gradients, f32: the mesh against one device
+    toks = torch.from_numpy(synthetic_batch(dcfg, 0)).to(dev)
+    want_loss, want = loss_and_grads(cfg, p32, toks)
+    want = {k: v.cpu() for k, v in flatten(want).items()}
+    dp = distribute(p32, mesh, shard)
+    with on_mesh(mesh):
+        got_loss, got = loss_and_grads(cfg, dp, global_batch_arrays(
+            dcfg, 0, mesh, bspec))
+    got = {k: v.cpu() for k, v in flatten(undistribute(got)).items()}
+    got_loss = got_loss.full_tensor()
+    same = sum(torch.equal(got[k], want[k]) for k in want)
+    worst = tree_errors(got, want, LM_GRAD_RTOL, LM_GRAD_ATOL, 0.0)
+    require(abs(float(got_loss) - float(want_loss))
+            <= MESH_LOSS_RTOL["f32"] * abs(float(want_loss)),
+            f"mesh loss {float(got_loss)} != one-device {float(want_loss)}")
+    print(f"check: {label} gradients, f32 (TF32 off), batch 0: loss "
+          f"{float(got_loss):.6f} vs one device {float(want_loss):.6f} "
+          f"({'bit-equal' if float(got_loss) == float(want_loss) else 'differ'}"
+          f"); {same} of {len(want)} gradient leaves bit-equal; all within "
+          f"rtol {LM_GRAD_RTOL:g} + atol {LM_GRAD_ATOL:g} x each leaf's "
+          f"largest |value| (largest |error| / scale {worst:.3e})")
+    del want, got, dp
+
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        params = T.tree_map(lambda a: a.to(dtype), p32)
+        one = mesh_step_stats(
+            build_train_step(cfg, ocfg), params, adamw.init_state(params, ocfg),
+            dcfg, lambda i: torch.from_numpy(synthetic_batch(dcfg, i)).to(dev),
+            dev)
+        del one["params"]
+        dp = distribute(params, mesh, shard)
+        del params
+        on = mesh_step_stats(
+            build_train_step(cfg, ocfg, mesh=mesh), dp,
+            adamw.init_state(dp, ocfg), dcfg,
+            lambda i: global_batch_arrays(dcfg, i, mesh, bspec), dev)
+        rtol = MESH_LOSS_RTOL[name]
+        require(np.allclose(on["losses"], one["losses"], rtol=rtol, atol=0),
+                f"{label} {name}: losses {on['losses']} vs one device "
+                f"{one['losses']} (rtol {rtol:g})")
+        bit = on["losses"] == one["losses"]
+        print(f"check: {label} {name}: losses " + ", ".join(
+            f"{x:.6f}" for x in on["losses"]) + " vs one device " + ", ".join(
+            f"{x:.6f}" for x in one["losses"]) + f" (rtol {rtol:g}; "
+            f"{'bit-equal' if bit else 'not bit-equal'})")
+        for what, r in (("mesh", on), ("one device", one)):
+            print(f"lm: {label} {name} {what}: {r['ms']:.4f} ms per step "
+                  f"(median of steps 2-{MESH_STEPS}; first {r['first_ms']:.1f}"
+                  f" ms), {1e3 * tokens / r['ms']:.1f} tokens/s, "
+                  f"max_memory_allocated {r['peak']} bytes; profiled step: "
+                  f"wall {r['wall']:.4f} ms, device {r['busy']:.4f} ms, idle "
+                  f"share {1 - r['busy'] / r['wall']:.4f}")
+        if name == "bf16":
+            ckpt = ROOT / "build" / "chip_smoke_mesh"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            t0 = time.perf_counter()
+            store.save(str(ckpt), 0, {"p": on["params"]})
+            back = store.restore(str(ckpt), 0, {"p": on["params"]},
+                                 mesh=mesh)
+            fs, fb = flatten(on["params"]), flatten(back["p"])
+            for k, v in fs.items():
+                a, b = v.full_tensor(), fb[k].full_tensor()
+                require(a.dtype == b.dtype and torch.equal(
+                    a.view(torch.int16), b.view(torch.int16)),
+                        f"checkpoint leaf {k} changed through the store")
+            print(f"check: {label} bf16 checkpoint: {len(fs)} DTensor "
+                  f"leaves saved and restored with restore(mesh=) bit for "
+                  f"bit ({time.perf_counter() - t0:.1f} s)")
+            shutil.rmtree(ckpt, ignore_errors=True)
+        del on, dp
+        torch.cuda.empty_cache()
+    del p32
+    torch.cuda.empty_cache()
+    lm_kernel_launches(kernels, label, by_path)
+
+
+def flash_decode_path(dev, kernels: dict, by_path: dict) -> None:
+    """``decode_attention_dist`` on a one-rank mesh at tinyllama's decode
+    width against ``decode_attention`` plus the slot write."""
+    import torch
+
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.flash_decode import decode_attention_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as ll
+
+    mesh = make_host_mesh(device=dev)
+    label = "flash decode"
+    B, Smax, H, K, hd = (FLASH_SHAPE[k] for k in ("B", "Smax", "H", "K",
+                                                   "hd"))
+    print(f"path: {label} (decode_attention_dist, one-rank mesh, B={B}, "
+          f"Smax={Smax}, H={H}, K={K}, hd={hd}, bf16)")
+    for k in kernels.values():
+        k.launches = 0
+    g = torch.Generator(device=dev)
+    g.manual_seed(LM_SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, kc, vc = rnd(B, 1, H, hd), rnd(B, Smax, K, hd), rnd(B, Smax, K, hd)
+    kn, vn = rnd(B, 1, K, hd), rnd(B, 1, K, hd)
+    for pos, w, cap in FLASH_CASES:
+        def dist():
+            with hints.mesh_hints(mesh):
+                return decode_attention_dist(q, kc, vc, kn, vn, pos,
+                                             window=w, softcap=cap)
+
+        def plain():
+            kr, vr = kc.clone(), vc.clone()
+            kr[:, pos], vr[:, pos] = kn[:, 0], vn[:, 0]
+            return ll.decode_attention(q, kr, vr, pos + 1, window=w,
+                                       softcap=cap), kr, vr
+
+        (od, kd, vd), (op, kp, vp) = dist(), plain()
+        require(torch.equal(kd, kp) and torch.equal(vd, vp),
+                f"{label} pos {pos}: the written caches differ")
+        require(torch.allclose(od.float(), op.float(), rtol=BF16_RTOL,
+                               atol=BF16_ATOL),
+                f"{label} pos {pos}: output differs by "
+                f"{max_abs_err(od.float(), op.float())}")
+        ms_d, ms_p = cuda_ms(dist, 20), cuda_ms(plain, 20)
+        print(f"check: {label} pos={pos} window={w} softcap={cap}: output "
+              f"within rtol {BF16_RTOL:g} + atol {BF16_ATOL:g} of plain "
+              f"(max |error| {max_abs_err(od.float(), op.float()):.3e}, "
+              f"{'bit-equal' if torch.equal(od, op) else 'not bit-equal'}), "
+              f"caches bit-equal; {ms_d:.4f} ms (plain {ms_p:.4f} ms)")
+    lm_kernel_launches(kernels, label, by_path)
+
+
+def moe_ep_path(dev, kernels: dict, by_path: dict) -> None:
+    """``moe_block_ep`` for one llama4-scout-17b-a16e MoE layer at its
+    published width on a one-rank mesh, against ``moe_block`` at the same
+    capacity: forward and the weights' gradients, bf16."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.moe_ep import _round8, moe_block_ep
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as ll
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, unflatten
+
+    cfg = get_config(MOE_ARCH)
+    mesh = make_host_mesh(device=dev)
+    label = f"{MOE_ARCH} moe_block_ep"
+    Bm, Sm = MOE_SHAPE
+    T_ = Bm * Sm
+    cap = _round8(int(T_ * cfg.topk / cfg.n_experts * cfg.capacity_factor))
+    for k in kernels.values():
+        k.launches = 0
+    p = T._layer(ll.init_moe(cfg, ll.ParamInit(dev, LM_SEED), 1,
+                             torch.bfloat16), 0)
+    nbytes = sum(v.numel() * v.element_size() for v in flatten(p).values())
+    print(f"path: {label} (d_model {cfg.d_model}, {cfg.n_experts} experts, "
+          f"top-{cfg.topk}, moe_d_ff {cfg.moe_d_ff}, {cfg.n_shared} shared; "
+          f"{nbytes} bytes of bf16 weights; {T_} tokens, capacity {cap})")
+    g = torch.Generator(device=dev)
+    g.manual_seed(LM_SEED)
+    x = torch.randn((Bm, Sm, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+
+    def ep():
+        with hints.mesh_hints(mesh):
+            return moe_block_ep(cfg, p, x, cap)
+
+    with CommDebugMode() as comm:
+        y_ep = ep()
+    a2a = sum(n for op, n in comm.get_comm_counts().items()
+              if "all_to_all" in str(op))
+    require(a2a == 2, f"{label}: the EP path ran {a2a} all-to-alls, not 2")
+    y = ll.moe_block(cfg, p, x, cap)
+    require(torch.allclose(y_ep.float(), y.float(), rtol=BF16_RTOL,
+                           atol=BF16_ATOL),
+            f"{label}: forward differs by {max_abs_err(y_ep, y)}")
+
+    def grads(fn):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in flatten(p).items()}
+        with hints.mesh_hints(mesh):
+            loss = (fn(unflatten(leaves)).float() ** 2).mean()
+        return dict(zip(leaves, torch.autograd.grad(loss, list(
+            leaves.values()))))
+
+    g_ep = grads(lambda q: moe_block_ep(cfg, q, x, cap))
+    g_pl = grads(lambda q: ll.moe_block(cfg, q, x, cap))
+    n_grads = len(g_pl)
+    worst, same = 0.0, 0
+    for k, w in g_pl.items():
+        scale = float(w.float().abs().max())
+        require(torch.allclose(g_ep[k].float(), w.float(), rtol=BF16_RTOL,
+                               atol=BF16_ATOL * scale),
+                f"{label}: gradient {k} differs")
+        worst = max(worst, max_abs_err(g_ep[k].float(), w.float())
+                    / max(scale, 1e-30))
+        same += torch.equal(g_ep[k], w)
+    del g_ep, g_pl
+    ms_ep, ms_pl = cuda_ms(ep, 5), cuda_ms(
+        lambda: ll.moe_block(cfg, p, x, cap), 5)
+    fb_ep = cuda_ms(lambda: grads(lambda q: moe_block_ep(cfg, q, x, cap)), 3)
+    fb_pl = cuda_ms(lambda: grads(lambda q: ll.moe_block(cfg, q, x, cap)), 3)
+    print(f"check: {label}: 2 all-to-alls; forward within rtol "
+          f"{BF16_RTOL:g} + atol {BF16_ATOL:g} of moe_block (max |error| "
+          f"{max_abs_err(y_ep.float(), y.float()):.3e}, "
+          f"{'bit-equal' if torch.equal(y_ep, y) else 'not bit-equal'}); "
+          f"{same} of {n_grads} weight "
+          f"gradients bit-equal, all within rtol {BF16_RTOL:g} + atol "
+          f"{BF16_ATOL:g} x scale (largest |error| / scale {worst:.3e})")
+    print(f"lm: {label}: forward {ms_ep:.4f} ms (moe_block {ms_pl:.4f} ms); "
+          f"forward + backward {fb_ep:.4f} ms (moe_block {fb_pl:.4f} ms)")
+    del p, x, y, y_ep
+    torch.cuda.empty_cache()
+    lm_kernel_launches(kernels, label, by_path)
+
+
+def pipeline_path(dev, kernels: dict, by_path: dict) -> None:
+    """``pipeline_forward`` with one stage over the full tinyllama stack
+    against ``forward_hidden`` (f32, TF32 off)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.models import transformer as T
+
+    full_f32_matmuls()
+    cfg = get_config(LM_ARCH)
+    mesh = make_mesh((1, 1), ("pod", "data"), device=dev)
+    label = f"{LM_ARCH} pipeline"
+    print(f"path: {label} (one stage of {cfg.n_layers} layers, "
+          f"B={LM_TRAIN_BATCH}, S={LM_TRAIN_SEQ}, {PIPE_MICRO} microbatches, "
+          f"f32)")
+    for k in kernels.values():
+        k.launches = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    params = T.init_params(cfg, gen, dtype=torch.float32, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (LM_TRAIN_BATCH, LM_TRAIN_SEQ))).to(dev)
+
+    def pp():
+        with torch.no_grad(), hints.mesh_hints(mesh):
+            return pipeline_forward(cfg, params, toks, n_micro=PIPE_MICRO)
+
+    def plain():
+        with torch.no_grad():
+            return T.forward_hidden(cfg, params, toks)
+
+    got, want = pp(), plain()
+    scale = float(want.abs().max())
+    require(torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale),
+            f"{label}: hidden state differs by {max_abs_err(got, want)}")
+    ms_pp, ms_pl = cuda_ms(pp, 3), cuda_ms(plain, 3)
+    print(f"check: {label} == forward_hidden within rtol 1e-4 + atol 1e-4 x "
+          f"{scale:.3f} (max |error| {max_abs_err(got, want):.3e}, "
+          f"{'bit-equal' if torch.equal(got, want) else 'not bit-equal'}); "
+          f"{ms_pp:.4f} ms (forward_hidden {ms_pl:.4f} ms)")
+    del params, got, want
+    torch.cuda.empty_cache()
+    lm_kernel_launches(kernels, label, by_path)
+
+
+def dryrun_cells() -> None:
+    """The fake-rank dry run's cells, each in a process of its own (one
+    default process group per process), all started together."""
+    import os
+
+    out = ROOT / "build" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    t0 = time.perf_counter()
+    for arch, shape, mesh in DRYRUN_CELLS:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", str(out)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    for (arch, shape, mesh), p, (so, se) in zip(DRYRUN_CELLS, procs, outs):
+        require(p.returncode == 0, f"dry run {arch} {shape} {mesh} exited "
+                f"{p.returncode}: {so[-1500:]} {se[-1500:]}")
+        rec = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
+        require(rec["status"] == "ok", f"dry run {arch} {shape}: {rec}")
+        c = rec["collectives"]
+        print(f"dryrun: {arch} {shape} {mesh} ({rec['ranks']} fake ranks, "
+              f"{rec['n_layers']} layers): {rec['seconds']:.1f} s; per rank "
+              f"params {rec['param_bytes_per_rank']} bytes, optimizer "
+              f"{rec['opt_bytes_per_rank']}, cache "
+              f"{rec['cache_bytes_per_rank']}, peak live "
+              f"{rec['peak_live_bytes']}; flops per rank "
+              f"{rec['flops_per_rank']:.4e}; collectives "
+              f"{json.dumps(c['counts'])}, bytes "
+              f"{json.dumps(c['bytes'])}, all-reduce ops "
+              f"{json.dumps(c['all_reduce_ops'])}")
+    print(f"dryrun: {len(DRYRUN_CELLS)} cells in {wall:.1f} s wall, "
+          f"started together")
+
+
 def run_main(argv) -> tuple:
     """(final loss, printed lines) of one in-process run of the port's
     training launcher."""
@@ -2983,6 +3467,10 @@ def main() -> None:
                  dev, by_path)
     sharded_acceptance(kernels, twins, dev, by_path)
 
+    # -- 10c'. data-parallel EHL: each batch in row blocks over a mesh -------
+    batch_sharded_path(bx, index, dense_got, s, t, qs, kernels, twins, dev,
+                       by_path)
+
     # -- 10d. the LM port: tinyllama-1.1b at full width, then the ten
     # architectures reduced (plain PyTorch: no EHL kernel launches) --------
     lm_full_width(dev, kernels, by_path)
@@ -2992,6 +3480,17 @@ def main() -> None:
     # families through the launcher (plain PyTorch: no EHL kernel launches)
     lm_train_full_width(dev, kernels, by_path)
     lm_train_families(dev, kernels, by_path)
+
+    # -- 10f. the distributed half on one card: a one-rank NCCL mesh ---------
+    lm_mesh_train(dev, kernels, by_path)
+    flash_decode_path(dev, kernels, by_path)
+    moe_ep_path(dev, kernels, by_path)
+    pipeline_path(dev, kernels, by_path)
+    dryrun_cells()
+    if torch.cuda.device_count() < 2:
+        print(f"multi-gpu: this machine has {torch.cuda.device_count()} "
+              "CUDA device; no multi-rank NCCL run was possible here (the "
+              "multi-rank paths ran on one rank)")
 
     # -- 11. kernel times beside the twins' and the bound ---------------------
     def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -3173,6 +3672,10 @@ def main() -> None:
          "bound_by": entry_rows[-1][4], "library_ms": None,
          "shape": f"main-path B={B},L={entry_rows[-1][0]}"},
     ]}))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

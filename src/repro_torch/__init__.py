@@ -7,5 +7,8 @@ their plain PyTorch twins on the CPU.  ``serving`` fronts it with engines
 and a batching server.  ``configs``, ``models`` and ``serving.LMServer``
 port the LM serving path (the ten architectures' prefill, cache and
 decode) in plain PyTorch; ``optim``, ``data``, ``checkpoint``,
-``distributed.fault`` and ``launch.train`` its training on one device.
+``distributed.fault`` and ``launch.train`` its training.  ``distributed``
+holds the multi-device half: DTensor sharding rules and hints, the
+expert-parallel MoE, the sequence-sharded decode and the GPipe pipeline;
+``launch.dryrun`` runs a step on a fake 256- or 512-rank group.
 """

@@ -15,8 +15,13 @@ bfloat16 leaves are stored as the reference's files hold them: their bits
 as 2-byte void (``|V2``) arrays, ``"bfloat16"`` in the manifest.  A leaf
 whose manifest says ``bfloat16`` is read back by viewing those bits as
 ``torch.bfloat16``, so the reference's bf16 checkpoints restore here with
-their bits.  One device; the mesh and resharding of the reference's
-``restore`` come with the distributed slice.
+their bits.
+
+On a mesh, ``save`` gathers each DTensor leaf's full value (a collective:
+every rank calls it) and global rank 0 writes; ``restore(mesh=)`` places
+every leaf replicated on the mesh, ``restore(mesh=, shardings=)`` as a tree
+of DTensor placements says, so a checkpoint saved on one mesh restores on
+another (the reference's elastic resize).
 """
 
 from __future__ import annotations
@@ -111,6 +116,13 @@ def load_ehl_index(path: str, scene, graph, hl):
 # training state
 # ---------------------------------------------------------------------------
 
+def _full(leaf):
+    """A DTensor leaf's full value (collective); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """(array to store, manifest dtype) of one leaf."""
     t = torch.as_tensor(leaf).detach().cpu()
@@ -129,9 +141,18 @@ def _from_numpy(arr: np.ndarray, dtype: str, dev) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree, *, host_id: int = 0,
          n_hosts: int = 1) -> str:
-    """Save a tree of tensors. Returns the final path."""
+    """Save a tree of tensors (DTensors gathered first). Returns the final
+    path."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
     flat = flatten(tree)
+    on_mesh = any(isinstance(v, DTensor) for v in flat.values())
+    flat = {k: _full(v) for k, v in flat.items()}
     final = os.path.join(ckpt_dir, f"step_{step:06d}")
+    if on_mesh and dist.get_rank() != 0:
+        dist.barrier()              # rank 0 writes; wait until it has
+        return final
     tmp = final + f".tmp{host_id}"
     os.makedirs(tmp, exist_ok=True)
 
@@ -150,6 +171,8 @@ def save(ckpt_dir: str, step: int, tree, *, host_id: int = 0,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
+    if on_mesh:
+        dist.barrier()
     return final
 
 
@@ -164,10 +187,18 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, tree_like, *, device="cuda"):
-    """Restore into the structure of ``tree_like``, every leaf on
-    ``device`` in the dtype the manifest records."""
-    dev = resolve_device(device)
+def restore(ckpt_dir: str, step: int, tree_like, *, device="cuda",
+            mesh=None, shardings=None):
+    """Restore into the structure of ``tree_like``, every leaf in the dtype
+    the manifest records: on ``device``, or with ``mesh`` a DTensor on it,
+    replicated or laid out by ``shardings`` (a tree of placements, possibly
+    for another mesh than the save-time one)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    if shardings is not None and mesh is None:
+        raise ValueError("restore(shardings=) needs the mesh they are for")
+    dev = resolve_device(mesh.device_type if mesh is not None else device)
+    flat_sh = flatten(shardings) if shardings is not None else None
     path = os.path.join(ckpt_dir, f"step_{step:06d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -180,5 +211,10 @@ def restore(ckpt_dir: str, step: int, tree_like, *, device="cuda"):
         if list(arr.shape) != want["shape"]:
             raise ValueError(f"checkpoint leaf {name}: shape {arr.shape}, "
                              f"manifest {want}")
-        out[name] = _from_numpy(arr, want["dtype"], dev)
+        leaf = _from_numpy(arr, want["dtype"], dev)
+        if mesh is not None:
+            pl = (flat_sh[name] if flat_sh is not None
+                  else [Replicate()] * mesh.ndim)
+            leaf = distribute_tensor(leaf, mesh, pl)
+        out[name] = leaf
     return unflatten(out)

@@ -1,16 +1,19 @@
-"""Architecture registry: ``--arch <id>`` resolution and the (arch x shape)
-cell enumeration.
+"""Architecture registry: ``--arch <id>`` resolution, the (arch x shape)
+cell enumeration and the per-cell input stand-ins.
 
 Each architecture lives in its own module exporting ``CONFIG`` with the
-published dims.  The per-cell input stand-ins of the reference registry
-(``input_specs``) belong with the dry run and are not ported here.
+published dims.  ``input_specs`` gives meta tensors (shapes and dtypes, no
+storage): the dry run's inputs.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import LM_SHAPES, ModelConfig, shape_applicable
+import torch
+
+from repro_torch.models.config import (LM_SHAPES, ModelConfig, ShapeSpec,
+                                       shape_applicable)
 
 ARCH_IDS = (
     "llama4-scout-17b-a16e",
@@ -42,3 +45,19 @@ def all_cells():
         for shape in LM_SHAPES:
             runs, reason = shape_applicable(cfg, shape)
             yield a, shape, runs, reason
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                device="meta") -> dict:
+    """Stand-ins for every model input of this cell: int32 tokens [B, S]
+    (one new token [B, 1] for decode) and, for the enc-dec family's train
+    and prefill cells, bf16 encoder frames [B, enc_seq, d_model]."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": torch.empty((B, 1), dtype=torch.int32,
+                                      device=device)}
+    specs = {"tokens": torch.empty((B, S), dtype=torch.int32, device=device)}
+    if cfg.encdec:
+        specs["enc_frames"] = torch.empty((B, cfg.enc_seq, cfg.d_model),
+                                          dtype=torch.bfloat16, device=device)
+    return specs

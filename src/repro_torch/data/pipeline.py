@@ -10,6 +10,9 @@ of (seed, step, h) through numpy's ``default_rng``, so
 * no filesystem dependency for benchmarks; a memory-mapped corpus reader
   serves real data.
 
+:func:`global_batch_arrays` places a host batch on a mesh as a DTensor
+sharded over the batch axes.
+
 The reference draws from ``jax.random``, which the port does not
 reproduce; the recipe is the same (a base token per row, a ramp, noise in
 [0, 17), taken mod vocab), the stream is numpy's.
@@ -68,3 +71,47 @@ class CorpusReader:
         out = np.stack([self.tokens[i * cfg.seq_len:(i + 1) * cfg.seq_len]
                         for i in idx])
         return out.astype(np.int32) % cfg.vocab
+
+
+def local_slices(gshape, mesh, placements) -> tuple:
+    """This rank's slice of each dim of a ``gshape`` tensor laid out by
+    ``placements`` on ``mesh`` (even shards; several mesh dims sharding one
+    tensor dim split it in mesh-dim order)."""
+    from torch.distributed.tensor import Shard
+
+    lo = [0] * len(gshape)
+    size = list(gshape)
+    for md, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = mesh.size(md)
+            if size[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(gshape)} does not "
+                                 f"split over mesh dim {md} ({n})")
+            size[pl.dim] //= n
+            lo[pl.dim] += mesh.get_local_rank(md) * size[pl.dim]
+    return tuple(slice(a, a + n) for a, n in zip(lo, size))
+
+
+def global_batch_arrays(cfg: DataConfig, step: int, mesh, spec):
+    """Host batch -> a DTensor of the global batch [global_batch, seq_len]
+    laid out by ``spec`` (``sharding.batch_spec``) on ``mesh``.
+
+    Each rank builds only its own shard, from this host's rows: global row
+    ``r`` is host row ``r % host_batch``, the reference's
+    ``make_array_from_callback`` map (on one host, the host batch itself).
+    The shard lives on the mesh's device type.
+    """
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import placements
+
+    local = synthetic_batch(cfg, step)
+    gshape = (cfg.global_batch, cfg.seq_len)
+    pl = placements(spec, mesh)
+    rows, cols = local_slices(gshape, mesh, pl)
+    sel = np.arange(rows.start, rows.stop) % local.shape[0]
+    shard = torch.from_numpy(np.ascontiguousarray(local[sel][:, cols]))
+    return DTensor.from_local(shard.to(mesh.device_type), mesh, pl,
+                              run_check=False, shape=gshape,
+                              stride=(gshape[1], 1))

@@ -1,2 +1,4 @@
-"""Device placement for the port: a serving "mesh" is a tuple of
-``torch.device`` (``mesh.make_serving_mesh``, ``mesh.shard_devices``)."""
+"""Entry points and placement: ``mesh`` (the LM's ``DeviceMesh`` builders
+and the serving mesh, a tuple of ``torch.device``), ``train`` (the
+training launcher, one device or a mesh) and ``dryrun`` (the fake-rank
+dry run)."""

@@ -1,15 +1,85 @@
-"""Serving placement: which device holds each region shard.
+"""Meshes: the LM's ``DeviceMesh`` and the serving placement.
 
-A "mesh" here is a tuple of ``torch.device``: the port serves a
+An LM mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the
+reference's axis names (``("data", "model")`` for a pod, ``("pod", "data",
+"model")`` for a multipod), built by ``distributed.compat.make_mesh``.  A
+serving "mesh" is a tuple of ``torch.device``: the port serves a
 region-sharded index (``repro_torch.sharding``) with one shard's slabs per
-device.  Importing this module touches no device state.
+device, and ``PathServer(batch_sharding=)`` splits each batch over it.
+Importing this module touches no device state.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.packed import resolve_device
+from repro_torch.distributed.compat import make_mesh
+
+#: ranks of the production meshes: one pod of 16x16, two pods of 16x16
+POD_SHAPE = (16, 16)
+MULTIPOD_SHAPE = (2, 16, 16)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The 16x16 pod mesh or the 2x16x16 multipod mesh over the default
+    group, which must hold 256 or 512 ranks (``torchrun`` across the hosts,
+    or the dry run's fake group).
+
+    Axes: ``pod`` spans the link between pods (data-parallel by default,
+    pipeline stages opt-in); ``data`` is batch/FSDP; ``model`` is
+    tensor/expert parallel.
+    """
+    import torch.distributed as dist
+
+    shape = MULTIPOD_SHAPE if multi_pod else POD_SHAPE
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    want = int(np.prod(shape))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != want:
+        raise ValueError(f"the {'multipod' if multi_pod else 'pod'} mesh "
+                         f"{shape} needs {want} ranks, the world has "
+                         f"{world} (launch with torchrun across the hosts)")
+    return make_mesh(shape, axes, device=device)
+
+
+def make_host_mesh(model_axis: int = 1, device="cuda"):
+    """A ``("data", "model")`` mesh over the ranks there are (one rank
+    with no launcher): tests and single-host runs."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compat import ensure_process_group
+
+    ensure_process_group(device)
+    n = dist.get_world_size()
+    model_axis = max(1, min(model_axis, n))
+    if n % model_axis:
+        raise ValueError(f"model axis {model_axis} does not divide the "
+                         f"{n} ranks")
+    return make_mesh((n // model_axis, model_axis), ("data", "model"),
+                     device=device)
+
+
+def axis_names(mesh) -> tuple:
+    """A mesh's axis names: a ``DeviceMesh``'s dim names, or the keys of a
+    stand-in's ``shape`` mapping."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.shape)
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of one named axis of a ``DeviceMesh`` or a stand-in with a
+    ``shape`` mapping."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return int(mesh.size(list(names).index(name)))
+    return int(mesh.shape[name])
+
+
+def data_axes(mesh) -> tuple:
+    """The axes a global batch shards over (pod included when present)."""
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
 
 
 def make_serving_mesh(num_shards: int) -> tuple:

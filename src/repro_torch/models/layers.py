@@ -26,6 +26,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.hints import (hint, local_heads, replicated,
+                                          splittable)
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
@@ -133,8 +136,15 @@ def _window_eff(window: int) -> int:
     return window if window > 0 else 2 ** 30
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    q_offset=0, q_chunk=512, kv_chunk=1024):
+def flash_attention(q, k, v, **kw):
+    """q [B,Sq,H,hd], k/v [B,Skv,K,hd or vd] (GQA: H % K == 0) -> [B,Sq,H,vd]
+    (:func:`_flash_attention`; on a mesh, on each rank's batch and head
+    shards)."""
+    return local_heads(_flash_attention, q, k, v, **kw)
+
+
+def _flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                     q_offset=0, q_chunk=512, kv_chunk=1024):
     """q [B,Sq,H,hd], k/v [B,Skv,K,hd or vd] (GQA: H % K == 0) -> [B,Sq,H,vd].
 
     window > 0 limits attention to the last ``window`` keys; q_offset
@@ -197,8 +207,15 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, softcap=0.0):
     """Single-position attention against a prefilled cache.
 
     q [B,1,H,hd]; k_cache/v_cache [B,Smax,K,*]; cur_len: #valid cache slots
-    (the new token's position is cur_len-1), an int.
+    (the new token's position is cur_len-1), an int.  On a mesh, on each
+    rank's batch and head shards.
     """
+    return local_heads(_decode_attention, q, k_cache, v_cache,
+                       cur_len=cur_len, window=window, softcap=softcap)
+
+
+def _decode_attention(q, k_cache, v_cache, cur_len, *, window=0,
+                      softcap=0.0):
     B, Smax, K, vd = v_cache.shape
     H = q.shape[2]
     rep = H // K
@@ -244,9 +261,9 @@ def gqa_qkv(cfg, p, x, positions):
     """x [B,S,d] -> q [B,S,H,hd], k/v [B,S,K,hd] with rope applied."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, K, hd)
-    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    q = splittable(x @ p["wq"], -1, H).reshape(B, S, H, hd)
+    k = splittable(x @ p["wk"], -1, K).reshape(B, S, K, hd)
+    v = splittable(x @ p["wv"], -1, K).reshape(B, S, K, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_scale"], cfg.norm_eps)
         k = rmsnorm(k, p["k_scale"], cfg.norm_eps)
@@ -290,7 +307,7 @@ def mla_qkv(cfg, p, x, positions):
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
 
     q = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps) @ p["wuq"]
-    q = q.reshape(B, S, H, nope + rope_d)
+    q = splittable(q, -1, H).reshape(B, S, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
 
     dkv = x @ p["wdkv"]
@@ -301,7 +318,7 @@ def mla_qkv(cfg, p, x, positions):
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope, cos, sin)
 
-    ukv = (c @ p["wukv"]).reshape(B, S, H, nope + vd)
+    ukv = splittable(c @ p["wukv"], -1, H).reshape(B, S, H, nope + vd)
     k_nope, v = ukv[..., :nope], ukv[..., nope:]
     k = torch.cat([k_nope, k_rope.expand(q_rope.shape)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -377,9 +394,13 @@ def moe_block(cfg, p, x, capacity: int):
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.topk
     T = B * S
-    xf = x.reshape(T, d)
+    xf = hint(x.reshape(T, d), ("pod", "data"), None)
+    # the routing sort, the capacity scatter (index_put_) and the combine
+    # gather have no DTensor sharding strategy: on a mesh they run on
+    # replicated operands (plain tensors pass through)
+    xr = replicated(xf)
 
-    scores = xf.float() @ p["router"]                          # [T, E]
+    scores = xr.float() @ replicated(p["router"])              # [T, E]
     if cfg.router == "sigmoid":
         probs = torch.sigmoid(scores)
     else:
@@ -394,19 +415,22 @@ def moe_block(cfg, p, x, capacity: int):
     keep = (pos >= 0) & (pos < capacity)
     pos_c = pos.clamp(0, capacity - 1)
 
-    buf = torch.zeros((E, capacity, d), dtype=xf.dtype, device=x.device)
+    buf = xr.new_zeros((E, capacity, d))
     for j in range(k):
-        upd = torch.where(keep[:, j, None], xf, 0)
-        buf.index_put_((exp_i[:, j], pos_c[:, j]), upd, accumulate=True)
+        upd = torch.where(keep[:, j, None], xr, 0)
+        buf = buf.index_put((exp_i[:, j], pos_c[:, j]), upd, accumulate=True)
+    buf = hint(buf, "model", ("pod", "data"), None)
 
     h = F.silu(buf @ p["wg"]) * (buf @ p["wu"])                # [E, C, ff]
-    out_buf = h @ p["wd"]                                      # [E, C, d]
+    h = hint(h, "model", ("pod", "data"), None)
+    out_buf = replicated(h @ p["wd"])                          # [E, C, d]
 
-    y = torch.zeros_like(xf)
+    y = torch.zeros_like(xr)
     for j in range(k):
         got = out_buf[exp_i[:, j], pos_c[:, j]]                # [T, d]
-        w = (keep[:, j] * gate_v[:, j]).to(xf.dtype)
+        w = (keep[:, j] * gate_v[:, j]).to(xr.dtype)
         y = y + got * w[:, None]
+    y = hint(y, ("pod", "data"), None)
 
     if cfg.n_shared:
         y = y + mlp(cfg, p["shared"], xf)

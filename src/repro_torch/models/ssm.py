@@ -18,6 +18,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.hints import local_batch
+from repro_torch.distributed.hints import pad as _pad
+
 from .layers import ParamInit, rmsnorm
 
 
@@ -58,7 +61,7 @@ def _causal_conv(xBC, w, b, state=None):
     """
     W = w.shape[0]
     if state is None:
-        pad = F.pad(xBC, (0, 0, W - 1, 0))
+        pad = _pad(xBC, (0, 0, W - 1, 0))
     else:
         pad = torch.cat([state.to(xBC.dtype), xBC], dim=1)
     S = xBC.shape[1]
@@ -156,7 +159,8 @@ def ssm_forward(cfg, p, x, *, chunked=True, init_state=None):
     Cm = xBC[..., d_in + s.state_dim:]
     dt, log_dA = _gates(cfg, p["dt_bias"], p["A_log"], dt_raw)
     ssd = ssd_chunked if chunked else ssd_sequential
-    y, state = ssd(cfg, xs, Bm, Cm, dt, log_dA, init_state=init_state)
+    y, state = local_batch(ssd, cfg, xs, Bm, Cm, dt, log_dA,
+                           init_state=init_state)
     y = y + (p["D"][None, None, :, None] * xs.float()).to(y.dtype)
     y = y.reshape(B, S, d_in) * F.silu(z)
     y = rmsnorm(y, p["norm"], cfg.norm_eps)

@@ -34,9 +34,16 @@ grad is enabled, ``cfg.remat`` checkpoints each block of ``blocks`` (and
 CE chunk is checkpointed; with grad off (prefill, decode) the same ops run
 without it.  A stacked group is split into per-layer views with one
 ``unbind`` a leaf, so a backward pass stacks each leaf's gradient once.
-Still left for the distributed slice: the reference's sharding hints,
-``moe_block_ep`` (``moe_block`` stands in, as the reference falls back to
-it without a mesh) and the sequence-sharded decode.
+On a mesh (``distributed.hints.mesh_hints``) the same functions take
+DTensor parameters and batches: ``hint`` anchors the residual stream after
+the embedding and the logits, as the reference does, and after each
+sublayer (the tensor-parallel all-reduce); each block's weights are
+all-gathered over the data axes when it runs (``fsdp_gather``); attention
+and the SSD scan run on each rank's shards; MoE blocks go through
+``distributed.moe_ep.moe_block_ep`` (``moe_block`` without a mesh or when
+the shapes do not divide), and a decode step whose KV heads do not divide
+the model axis runs ``distributed.flash_decode`` over a sequence-sharded
+cache.
 """
 
 from __future__ import annotations
@@ -52,6 +59,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.packed import resolve_device
+from repro_torch.distributed import hints
+from repro_torch.distributed.hints import fsdp_gather, hint, splittable
 from repro_torch.tree import tree_map
 
 from . import layers as ll
@@ -62,6 +71,8 @@ from .config import ModelConfig
 F32_LEAVES = frozenset({"router", "A_log", "dt_bias", "D", "state"})
 # cross-attention slabs: made once by init_cache, never written by a step
 _READ_ONLY = frozenset({"xk", "xv"})
+# the axes a global batch shards over
+BATCH_AXES = ("pod", "data")
 
 
 def _layer(tree, l: int):
@@ -207,6 +218,17 @@ def _windows(cfg: ModelConfig, L: int, offset: int = 0) -> list:
             for l in range(L)]
 
 
+def _embed(w, tokens):
+    """The embedding rows of ``tokens``: ``w[tokens]``.  On a DTensor,
+    ``F.embedding`` on the weight made ``Replicate()``: DTensor's backward
+    of the indexed gather (``index_put``) is refused by some torch
+    releases, and of the vocab-sharded embedding (a masked partial sum)
+    by others.  Same values either way."""
+    if not hints.is_dtensor(w):
+        return w[tokens]
+    return F.embedding(tokens, hints.replicated(w))
+
+
 def _scale_embed(cfg, x):
     """``x * sqrt(d_model)`` with the scale rounded to x's dtype first, as
     the reference's ``jnp.asarray(d_model ** 0.5, x.dtype)``."""
@@ -234,9 +256,11 @@ def _attn_full(cfg, p, x, positions, window):
 def _xattn_full(cfg, p, x, enc_out):
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (enc_out @ p["wk"]).reshape(B, enc_out.shape[1], K, hd)
-    v = (enc_out @ p["wv"]).reshape(B, enc_out.shape[1], K, hd)
+    q = splittable(x @ p["wq"], -1, H).reshape(B, S, H, hd)
+    k = splittable(enc_out @ p["wk"], -1, K).reshape(B, enc_out.shape[1],
+                                                      K, hd)
+    v = splittable(enc_out @ p["wv"], -1, K).reshape(B, enc_out.shape[1],
+                                                      K, hd)
     o = ll.flash_attention(q, k, v, causal=False, window=0,
                            q_chunk=cfg.attn_q_chunk,
                            kv_chunk=cfg.attn_kv_chunk)
@@ -254,21 +278,28 @@ def _mixers(attn_out, ssm_out):
 
 def _block_fwd(cfg: ModelConfig, p, x, positions, window, moe: bool,
                capacity: int, enc_out=None):
+    p = fsdp_gather(p)
     h = ll.rmsnorm(x, p["ln1"], cfg.norm_eps)
     a = _attn_full(cfg, p["attn"], h, positions, window) \
         if "attn" in p else None
     s = ssm_mod.ssm_forward(cfg, p["ssm"], h)[0] if "ssm" in p else None
-    x = x + _mixers(a, s)
+    # the residual stream after each sublayer: batch over the data axes,
+    # replicated over model (the tensor-parallel all-reduce here; left to
+    # itself, DTensor keeps the sum partial and gathers the next weights)
+    x = hint(x + _mixers(a, s), BATCH_AXES, None, None)
     if "xattn" in p:
         hx = ll.rmsnorm(x, p["lnx"], cfg.norm_eps)
-        x = x + _xattn_full(cfg, p["xattn"], hx, enc_out)
+        x = hint(x + _xattn_full(cfg, p["xattn"], hx, enc_out), BATCH_AXES,
+                 None, None)
     if moe:
+        from repro_torch.distributed.moe_ep import moe_block_ep
+
         h2 = ll.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + ll.moe_block(cfg, p["moe"], h2, capacity)
+        x = x + moe_block_ep(cfg, p["moe"], h2, capacity)
     elif "mlp" in p:
         h2 = ll.rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + ll.mlp(cfg, p["mlp"], h2)
-    return x
+    return hint(x, BATCH_AXES, None, None)
 
 
 # matmuls with no batch dims (``x @ w`` folds to aten.mm): what jax's
@@ -339,16 +370,18 @@ def encode(cfg: ModelConfig, params, enc_frames):
     H, hd = cfg.n_heads, cfg.head_dim
 
     def enc_block(x, bp):
+        bp = fsdp_gather(bp)
         h = ll.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-        q = (h @ bp["wq"]).reshape(B, S, H, hd)
-        k = (h @ bp["wk"]).reshape(B, S, H, hd)
-        v = (h @ bp["wv"]).reshape(B, S, H, hd)
+        q = splittable(h @ bp["wq"], -1, H).reshape(B, S, H, hd)
+        k = splittable(h @ bp["wk"], -1, H).reshape(B, S, H, hd)
+        v = splittable(h @ bp["wv"], -1, H).reshape(B, S, H, hd)
         o = ll.flash_attention(q, k, v, causal=False, window=0,
                                q_chunk=cfg.attn_q_chunk,
                                kv_chunk=cfg.attn_kv_chunk)
-        x = x + o.reshape(B, S, -1) @ bp["wo"]
+        # the residual stream anchored as in _block_fwd
+        x = hint(x + o.reshape(B, S, -1) @ bp["wo"], BATCH_AXES, None, None)
         h2 = ll.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        return x + ll.mlp(c2, bp["mlp"], h2)
+        return hint(x + ll.mlp(c2, bp["mlp"], h2), BATCH_AXES, None, None)
 
     # the reference checkpoints its scanned encoder under "full" only
     if cfg.remat == "full" and not cfg.unroll_layers:
@@ -362,9 +395,10 @@ def _trunk(cfg: ModelConfig, params, tokens, enc_frames, positions, embeds):
     """The block stack: tokens [B,S] -> the hidden state before the final
     norm."""
     B, S = tokens.shape
-    x = params["embed"][tokens] if embeds is None else embeds
+    x = _embed(params["embed"], tokens) if embeds is None else embeds
     if cfg.embed_scale:
         x = _scale_embed(cfg, x)
+    x = hint(x, BATCH_AXES, None, None)
     positions = (torch.arange(S, device=x.device).expand(B, S)
                  if positions is None else positions)
     enc_out = encode(cfg, params, enc_frames) if cfg.encdec else None
@@ -416,11 +450,12 @@ def prefill(cfg: ModelConfig, params, tokens, enc_frames=None):
 
 
 def _unembed(cfg, params, x):
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    w = fsdp_gather(params["embed"].T if cfg.tie_embeddings
+                    else params["unembed"])
     logits = (x @ w).float()
     if cfg.softcap_logits > 0:
         logits = torch.tanh(logits / cfg.softcap_logits) * cfg.softcap_logits
-    return logits
+    return hint(logits, BATCH_AXES, None, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -435,9 +470,9 @@ def _chunked_ce(cfg, params, hidden, targets, mask):
     B, S, d = hidden.shape
     c = min(cfg.ce_chunk, S)
     pad = (-S) % c
-    h = F.pad(hidden, (0, 0, 0, pad))
-    t = F.pad(targets, (0, pad)).long()
-    m = F.pad(mask, (0, pad))
+    h = hints.pad(hidden, (0, 0, 0, pad))
+    t = hints.pad(targets, (0, pad)).long()
+    m = hints.pad(mask, (0, pad))
 
     def body(hc, tc, mc):
         lp = torch.log_softmax(_unembed(cfg, params, hc), dim=-1)
@@ -455,8 +490,9 @@ def _mtp_hidden(cfg, params, hidden, tokens):
     """DeepSeek's depth-1 MTP block over [h_t ; emb(t+1)], final-normed:
     [B, S-1, d] aligned to targets shifted by 2."""
     B, S = tokens.shape
-    emb_next = params["embed"][tokens[:, 1:]]              # [B,S-1,d]
-    h = torch.cat([hidden[:, :-1], emb_next], dim=-1) @ params["mtp_proj"]
+    emb_next = _embed(params["embed"], tokens[:, 1:])       # [B,S-1,d]
+    h = torch.cat([hidden[:, :-1], emb_next], dim=-1) \
+        @ fsdp_gather(params["mtp_proj"])
     bp = _layer(params["mtp_block"], 0)
     pos = torch.arange(S - 1, device=h.device).expand(B, S - 1)
     h = _block_fwd(cfg, bp, h, pos, 0, moe=False, capacity=0)
@@ -560,10 +596,21 @@ def _attn_decode(cfg, p, h, cache_l, pos, window):
     step's own copy) and returns the attention output."""
     if cfg.attn == "mla":
         return _mla_decode(cfg, p, h, cache_l, pos)
+    from repro_torch.distributed.flash_decode import (
+        decode_attention_dist, seq_sharded_decode_applicable)
+
     B = h.shape[0]
     posv = torch.full((B, 1), pos, device=h.device)
     q, k, v = ll.gqa_qkv(cfg, p, h, posv)
     kc, vc = cache_l["k"], cache_l["v"]
+    if seq_sharded_decode_applicable(hints.current_mesh(), B, kc.shape[1],
+                                     cfg.n_kv_heads):
+        o, kd, vd = decode_attention_dist(q, kc, vc, k, v, pos,
+                                          window=window,
+                                          softcap=cfg.softcap_attn)
+        kc.copy_(kd)
+        vc.copy_(vd)
+        return o.reshape(B, 1, -1) @ p["wo"]
     slot = _slot(pos, kc.shape[1])
     kc[:, slot] = k[:, 0]
     vc[:, slot] = v[:, 0]
@@ -615,6 +662,7 @@ def _mla_decode(cfg, p, h, cache_l, pos):
 def _block_decode(cfg, p, cache_l, x, pos, window):
     """One block of one step; ``cache_l`` is this layer's view of the
     step's own cache copy, written in place."""
+    p = fsdp_gather(p)
     h = ll.rmsnorm(x, p["ln1"], cfg.norm_eps)
     a = s = None
     if "attn" in p:
@@ -630,7 +678,7 @@ def _block_decode(cfg, p, cache_l, x, pos, window):
         hx = ll.rmsnorm(x, p["lnx"], cfg.norm_eps)
         B = x.shape[0]
         H, hd = cfg.n_heads, cfg.head_dim
-        q = (hx @ p["xattn"]["wq"]).reshape(B, 1, H, hd)
+        q = splittable(hx @ p["xattn"]["wq"], -1, H).reshape(B, 1, H, hd)
         o = ll.decode_attention(q, cache_l["xk"], cache_l["xv"],
                                 cache_l["xk"].shape[1], window=0)
         x = x + o.reshape(B, 1, -1) @ p["xattn"]["wo"]
@@ -655,7 +703,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One serving step: tokens [B,1] -> (logits [B,1,V], new cache).  The
     input cache is left as it was."""
     pos = cache["step"]
-    x = params["embed"][tokens]
+    x = _embed(params["embed"], tokens)
     if cfg.embed_scale:
         x = _scale_embed(cfg, x)
 

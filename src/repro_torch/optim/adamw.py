@@ -35,7 +35,8 @@ class AdamWConfig:
 
 def init_state(params, cfg: AdamWConfig):
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        # zeros_like: a DTensor parameter gets moments with its layout
+        return torch.zeros_like(p, dtype=cfg.moment_dtype)
 
     dev = leaves(params)[0].device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),

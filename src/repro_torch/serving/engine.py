@@ -8,6 +8,9 @@ keeps the kernels' shapes steady), answered, and scattered back into
 request order.  Per-bucket latency/occupancy counters make the routing
 observable.  ``start_async``/``submit``/``flush``/``drain``/``stop_async``
 front the same engine with the continuous batcher (``serving.batcher``).
+With ``mesh=`` (a tuple of devices) and ``batch_sharding="rows"``, each
+fixed-shape batch is split into ``len(mesh)`` row blocks, each answered on
+its device's replica of the artifact (data-parallel serving).
 A ``recorder`` (``indexing.WorkloadRecorder``) is fed every answered
 query, synchronous or through the batcher, for adaptive re-indexing.
 
@@ -31,7 +34,12 @@ import torch
 from repro_torch import obs
 from repro_torch.core.packed import empty_results, resolve_device
 from repro_torch.core.query import path_length, unwind_path
-from repro_torch.serving.query_engine import HostEngine, QueryEngine, make_engine
+from repro_torch.serving.query_engine import (DeviceEngine, HostEngine,
+                                              QueryEngine, make_engine,
+                                              replicate_artifact)
+
+#: the one ``batch_sharding`` layout: a batch's rows split over the mesh
+BATCH_ROWS = "rows"
 
 
 class BucketStats(obs.StatsView):
@@ -143,10 +151,19 @@ class PathServer:
     head-sampled tracing over the process-wide registry, and
     ``obs.Telemetry.off()`` disables spans and events (the registry stays
     on: it *is* the stats).
+
+    ``mesh``: a serving mesh, a tuple of devices.  With ``batch_sharding=
+    BATCH_ROWS`` the artifact of a device engine is replicated once per
+    distinct device of the mesh (the engine's own device keeps the
+    engine), and every fixed-shape batch is split into ``len(mesh)`` equal
+    row blocks, each staged and dispatched on its device's replica without
+    waiting; the answers are gathered in request order.  It is a
+    synchronous-dispatch feature: ``start_async`` raises with it.
     """
 
     def __init__(self, index, batch_size: int = 256, backend: str = "cuda",
-                 device="cuda", recorder=None, telemetry=None):
+                 device="cuda", mesh=None, batch_sharding=None,
+                 recorder=None, telemetry=None):
         if isinstance(index, QueryEngine):
             self.engine = index
         else:
@@ -155,15 +172,47 @@ class PathServer:
         self.telemetry = obs.Telemetry() if telemetry is None else telemetry
         self.stats = ServeStats(registry=self.telemetry.registry)
         self.engine.bind_telemetry(self.telemetry)
+        self.mesh = None if mesh is None else tuple(_device(d) for d in mesh)
+        self._sharding = batch_sharding
+        self._replicas = (None if batch_sharding is None
+                          else self._replicate(batch_sharding))
         self._recorder = recorder
         self._batcher = None        # continuous batching: start_async()
+
+    def _replicate(self, batch_sharding) -> list:
+        """One engine per mesh position, one artifact per distinct device."""
+        if batch_sharding != BATCH_ROWS:
+            raise ValueError(f"batch_sharding={batch_sharding!r}: the one "
+                             f"layout is {BATCH_ROWS!r} (rows over the mesh)")
+        if not self.mesh:
+            raise ValueError("batch_sharding needs a mesh of devices")
+        eng = self.engine
+        if not isinstance(eng, DeviceEngine):
+            raise TypeError("batch_sharding replicates a device engine's "
+                            f"artifact; got {eng.name!r}")
+        if self.batch_size % len(self.mesh):
+            raise ValueError(f"batch {self.batch_size} does not split into "
+                             f"{len(self.mesh)} row blocks")
+        per_dev = {_device(eng.index.device): eng}
+        for dev in self.mesh:
+            if dev not in per_dev:
+                rep = type(eng)(replicate_artifact(eng.index, dev))
+                rep.bind_telemetry(self.telemetry)
+                per_dev[dev] = rep
+        return [per_dev[dev] for dev in self.mesh]
 
     def warmup(self, paths: bool = False):
         """Run every bucket width once at the serving batch shape (and, with
         ``paths=True``, the argmin path behind ``query_paths``), so the first
         live request never pays a kernel build or load, a new allocator
-        shape or a staging buffer (checked by ``core.packed.TRACES``)."""
-        self.engine.warmup(self.batch_size, want_argmin=paths)
+        shape or a staging buffer (checked by ``core.packed.TRACES``).
+        Under ``batch_sharding`` each replica runs the row-block shape."""
+        if self._replicas is None:
+            self.engine.warmup(self.batch_size, want_argmin=paths)
+            return
+        rows = self.batch_size // len(self._replicas)
+        for rep in {id(r): r for r in self._replicas}.values():
+            rep.warmup(rows, want_argmin=paths)
 
     # -------------------------------------------------- continuous batching
     def start_async(self, max_wait_ms: float = 2.0, max_queue: int = 8192,
@@ -176,6 +225,10 @@ class PathServer:
         if self._batcher is not None:
             raise RuntimeError("async serve loop already running; "
                                "stop_async() first")
+        if self._sharding is not None:
+            raise ValueError("batch_sharding is a synchronous-dispatch "
+                             "feature; the async loop stages transfers "
+                             "through QueryEngine.stage instead")
         self._batcher = CoalescingBatcher(self, max_wait_ms=max_wait_ms,
                                           max_queue=max_queue,
                                           policy=policy, depth=depth)
@@ -252,7 +305,9 @@ class PathServer:
                     tb = np.zeros((rows, 2), np.float32)
                     sb[:len(sel)] = s[sel]
                     tb[:len(sel)] = t[sel]
-                    if want_argmin:
+                    if self._replicas is not None:
+                        res = self._split_batch(sb, tb, int(k), want_argmin)
+                    elif want_argmin:
                         res = eng.batch_argmin(sb, tb, bucket=int(k))
                     else:
                         res = (eng.batch(sb, tb, bucket=int(k)),)
@@ -277,6 +332,16 @@ class PathServer:
         if self._recorder is not None and n:
             self._recorder.record(s, t)
         return outs
+
+    def _split_batch(self, s, t, bucket: int, want_argmin: bool) -> tuple:
+        """One padded batch as ``len(mesh)`` row blocks: every block is
+        staged and dispatched on its replica before any is waited on."""
+        r = len(s) // len(self._replicas)
+        pending = [rep.dispatch_staged(
+            rep.stage(s[i * r:(i + 1) * r], t[i * r:(i + 1) * r], bucket),
+            bucket, want_argmin) for i, rep in enumerate(self._replicas)]
+        parts = [p.wait() for p in pending]
+        return tuple(np.concatenate(col) for col in zip(*parts))
 
     def _sync_trace(self, n: int, argmin: bool):
         """Head-sample a sync-path trace (None = not sampled)."""
@@ -364,6 +429,15 @@ class PathServer:
         self.stats.queries += len(s)
         self._close_sync(trace, t0, t1)
         return d, paths
+
+
+def _device(d) -> torch.device:
+    """``d`` resolved (raises for CUDA without a card), a bare ``cuda`` as
+    the current card."""
+    dev = resolve_device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 class LMServer:

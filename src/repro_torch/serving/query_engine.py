@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import abc
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -411,6 +412,28 @@ class TorchEngine(DeviceEngine):
 class CudaEngine(DeviceEngine):
     name = "cuda"
     use_kernels = True
+
+
+def replicate_artifact(art, device):
+    """A copy of a packed artifact (PackedIndex / BucketedIndex, its edge
+    grid included) with every tensor on ``device``; host-side fields (the
+    quantized layout's residual table) are shared."""
+    dev = torch.device(device)
+
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        if isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
+            return tuple(a.to(dev) for a in v)
+        if dataclasses.is_dataclass(v) and not isinstance(v, type) and \
+                any(isinstance(getattr(v, f.name), torch.Tensor)
+                    for f in dataclasses.fields(v)):
+            return replicate_artifact(v, dev)
+        return v
+
+    return dataclasses.replace(art, **{
+        f.name: move(getattr(art, f.name)) for f in dataclasses.fields(art)
+        if f.init})
 
 
 def make_engine(index, backend: str = "cuda", device="cuda",

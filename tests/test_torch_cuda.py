@@ -1153,3 +1153,154 @@ def test_bf16_checkpoint_round_trip_on_card(card, tmp_path):
         if v.dtype == torch.bfloat16:
             got, v = got.view(torch.int16), v.view(torch.int16)
         assert torch.equal(got, v), k
+
+
+# ------------------------------------------------- the distributed half
+
+@pytest.fixture
+def card_mesh(full_f32):
+    """A one-rank ("data", "model") NCCL mesh on the card (the process's
+    default group, made on first use)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(device=full_f32)
+
+
+def test_mesh_train_step_on_card_equals_one_device(card_mesh):
+    """tinyllama reduced on a one-rank NCCL mesh: DTensor parameters from
+    ``param_shardings``, the batch from ``global_batch_arrays``; three
+    ``build_train_step`` steps' losses and the first step's gradients
+    within rtol 1e-5 and atol 1e-6 times the larger of 1 and the leaf's
+    largest magnitude of the one-device step (one rank runs the same local
+    ops)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, global_batch_arrays,
+                                           synthetic_batch)
+    from repro_torch.distributed.sharding import (batch_spec, distribute,
+                                                  param_shardings,
+                                                  undistribute)
+    from repro_torch.launch.train import (build_train_step, host_float,
+                                          loss_and_grads, on_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("tinyllama-1.1b").reduced()
+    params = T.init_params(cfg, 0, dtype=torch.float32, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    mesh = card_mesh
+    dp = distribute(params, mesh, param_shardings(params, mesh))
+    spec = batch_spec(mesh)
+
+    def close(got, want):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+
+    tok = torch.from_numpy(synthetic_batch(dcfg, 0)).to(dev)
+    wl, wg = loss_and_grads(cfg, params, tok)
+    with on_mesh(mesh):
+        gl, gg = loss_and_grads(cfg, dp, global_batch_arrays(dcfg, 0, mesh,
+                                                             spec))
+    close(gl.full_tensor(), wl)
+    for k, w in flatten(wg).items():
+        close(flatten(undistribute(gg))[k], w)
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=8)
+    one, on = build_train_step(cfg, ocfg), build_train_step(cfg, ocfg,
+                                                            mesh=mesh)
+    so, sm = adamw.init_state(params, ocfg), adamw.init_state(dp, ocfg)
+    for i in range(3):
+        params, so, mo = one(params, so, torch.from_numpy(
+            synthetic_batch(dcfg, i)).to(dev))
+        dp, sm, mm = on(dp, sm, global_batch_arrays(dcfg, i, mesh, spec))
+        close(torch.tensor(host_float(mm["loss"])),
+              torch.tensor(host_float(mo["loss"])))
+
+
+@pytest.mark.parametrize("pos,window,cap", [(17, 0, 0.0), (9, 5, 30.0),
+                                            (31, 0, 50.0)])
+def test_flash_decode_dist_on_card(card_mesh, pos, window, cap):
+    """``decode_attention_dist`` on a one-rank mesh == ``decode_attention``
+    plus the slot write (< 1e-5, the reference test's tolerance; the
+    caches bit for bit)."""
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.flash_decode import decode_attention_dist
+    from repro_torch.models import layers as ll
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(pos)
+    B, Smax, K, H, hd = 4, 32, 3, 6, 16
+    q, kc, vc, kn, vn = (torch.randn(s, generator=g, device="cuda")
+                         for s in ((B, 1, H, hd), (B, Smax, K, hd),
+                                   (B, Smax, K, hd), (B, 1, K, hd),
+                                   (B, 1, K, hd)))
+    with hints.mesh_hints(card_mesh):
+        od, kd, vd = decode_attention_dist(q, kc, vc, kn, vn, pos,
+                                           window=window, softcap=cap)
+    kr, vr = kc.clone(), vc.clone()
+    kr[:, pos], vr[:, pos] = kn[:, 0], vn[:, 0]
+    want = ll.decode_attention(q, kr, vr, pos + 1, window=window,
+                               softcap=cap)
+    assert float((od - want).abs().max()) < 1e-5
+    assert torch.equal(kd, kr) and torch.equal(vd, vr)
+
+
+def test_moe_block_ep_on_card(card_mesh):
+    """``moe_block_ep`` (deepseek-v3 reduced) on a one-rank mesh against
+    ``moe_block``: forward < 1e-4, gradients < 1e-5 (the reference test's
+    tolerances); the forward ran two all-to-alls."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.moe_ep import moe_block_ep
+    from repro_torch.models import layers as ll
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, unflatten
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("deepseek-v3-671b").reduced()
+    p = T._layer(ll.init_moe(cfg, ll.ParamInit(dev, 0), 1, torch.float32), 0)
+    x = torch.randn((4, 16, cfg.d_model), device=dev)
+    cap = 1 << 20
+
+    def grads(fn):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in flatten(p).items()}
+        with hints.mesh_hints(card_mesh):
+            out = fn(unflatten(leaves))
+        g = torch.autograd.grad((out ** 2).mean(), list(leaves.values()))
+        return out.detach(), dict(zip(leaves, g))
+
+    with CommDebugMode() as comm, torch.no_grad(), \
+            hints.mesh_hints(card_mesh):
+        moe_block_ep(cfg, p, x, cap)
+    assert sum(n for op, n in comm.get_comm_counts().items()
+               if "all_to_all" in str(op)) == 2
+    y, g1 = grads(lambda q: moe_block_ep(cfg, q, x, cap))
+    want, g2 = grads(lambda q: ll.moe_block(cfg, q, x, cap))
+    assert float((y - want).abs().max()) < 1e-4
+    assert max(float((g1[k] - g2[k]).abs().max()) for k in g1) < 1e-5
+
+
+def test_batch_sharding_server_on_card(card, rooms_s):
+    """``PathServer(mesh=(cuda:0, cuda:0), batch_sharding="rows")`` == the
+    unsharded server bit for bit (distances and all five argmin outputs),
+    and its warmup leaves nothing cold for live traffic."""
+    from repro_torch.serving import CudaEngine, PathServer
+    from repro_torch.serving.engine import BATCH_ROWS
+
+    idx, s, t = rooms_s
+    bx = pack_bucketed(idx, device=card)
+    plain = PathServer(CudaEngine(bx), batch_size=64)
+    split = PathServer(CudaEngine(bx), batch_size=64, mesh=(card, card),
+                       batch_sharding=BATCH_ROWS)
+    split.warmup(paths=True)
+    before = cold_counts()
+    got = split._dispatch(s, t, want_argmin=True)
+    assert cold_counts() == before
+    for a, b in zip(got, plain._dispatch(s, t, want_argmin=True)):
+        assert np.array_equal(a, b)
+    np.testing.assert_array_equal(split.query(s, t), plain.query(s, t))
+    with pytest.raises(ValueError):
+        split.start_async()
