@@ -142,7 +142,17 @@ After the sharded paths, a tenth EHL path: data-parallel serving,
 batch_sharding="rows")``, each batch of 256 as two row blocks on the one
 card's replica, driven like the others (answers == the dense path's bit
 for bit, nothing cold, both kernels launched, no twin, ``start_async``
-refused).  Then the distributed half on one card (plain PyTorch, no EHL
+refused).  Then ``syncs:``, the dynamic complement of the port's invariant
+pass (``lint:``, run right after the build over this checkout's
+``src/repro_torch``: 0 findings required): on each warmed engine of the
+EHL paths (rooms-M dense, slab, bf16/u16, the four shards in f32 and
+bf16, batch-sharded), one batch's ``stage`` + ``dispatch_staged`` under
+``torch.cuda.set_sync_debug_mode("warn")``, each reported sync attributed
+to its innermost ``repro_torch.serving``/``.sharding`` frame: none on the
+f32 engines, every other one at a ``hot-path-sync`` marker, answers equal
+to the synchronous call's; and ``quickstart:``, the quickstart twin on the
+card (kernels == twins bit for bit, within 1e-4 of the host query).  Then
+the distributed half on one card (plain PyTorch, no EHL
 kernel launched; every mesh is one NCCL rank, so multi-rank traffic is
 not exercised here: it is held on the CPU over gloo by the tests):
 
@@ -796,7 +806,7 @@ def spread_and_profile(srv, s, t) -> None:
 
 
 def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
-                   by_path: dict) -> None:
+                   by_path: dict, staged: dict) -> None:
     """The rooms-M index packed bf16/u16 (DESIGN.md §11), driven through
     ``CudaEngine`` as the other paths are, and its f16 twin checked once."""
     from repro_torch import obs
@@ -821,6 +831,7 @@ def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
     qerr = st["qerr"]
     print(f"path: {MAP} bf16/u16 quantized")
     eng = CudaEngine(qbx)
+    staged[f"{MAP} bf16"] = eng
     srv = PathServer(eng, batch_size=BATCH)
     run = drive(srv, s, t, index, kernels, twins, f"{MAP} bf16")
     by_path[f"{MAP} bf16"] = run["launches"]
@@ -988,7 +999,7 @@ def cell3_check(dev) -> None:
 
 
 def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
-              by_path: dict) -> None:
+              by_path: dict, staged: dict) -> None:
     """The rooms-M index packed into one slab (``pack_index``, every batch
     at the global width), driven as the other paths are; its answers must
     equal the slab TorchEngine's and the bucketed path's bit for bit.  Then
@@ -1011,6 +1022,7 @@ def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
             "slab_device_bytes != the slab artifact's device_bytes()")
     print(f"path: {MAP} slab f32")
     srv = PathServer(CudaEngine(pk), batch_size=BATCH)
+    staged[f"{MAP} slab"] = srv.engine
     run = drive(srv, s, t, index, kernels, twins, f"{MAP} slab")
     by_path[f"{MAP} slab"] = run["launches"]
     require(run["launches"]["segvis"] > 0
@@ -1873,7 +1885,7 @@ def routing_line(label: str, eng, s, t) -> None:
 
 
 def sharded_path(index, bx, sh, gsh, dense_got, s, t, qs, kernels, twins,
-                 dev, by_path: dict) -> None:
+                 dev, by_path: dict, staged: dict) -> None:
     """The main path's index over SHARDS region shards on the card
     (``ShardPlanner(4).build``), served by a ``ShardedQueryEngine`` on the
     CUDA kernels behind ``PathServer(batch_size=256)``: per-shard lines,
@@ -1908,6 +1920,7 @@ def sharded_path(index, bx, sh, gsh, dense_got, s, t, qs, kernels, twins,
 
     print(f"path: {label}")
     eng = ShardedQueryEngine(sh, backend="cuda")
+    staged[label] = eng
     srv = PathServer(eng, batch_size=BATCH)
     run = drive(srv, s, t, index, kernels, twins, label)
     by_path[label] = run["launches"]
@@ -1972,6 +1985,7 @@ def sharded_path(index, bx, sh, gsh, dense_got, s, t, qs, kernels, twins,
             f"bf16 shard bytes {qper} != {SHARD_BYTES_BF16} or the "
             f"estimate {qest}")
     qeng = ShardedQueryEngine(qsh, backend="cuda")
+    staged[f"{label} bf16"] = qeng
     qsrv = PathServer(qeng, batch_size=BATCH)
     qsrv.warmup(paths=True)
     qd = qsrv.query(s, t)
@@ -2627,7 +2641,7 @@ def lm_train_full_width(dev, kernels: dict, by_path: dict) -> None:
 
 
 def batch_sharded_path(bx, index, dense_got, s, t, qs, kernels, twins,
-                       dev, by_path: dict) -> None:
+                       dev, by_path: dict, staged: dict) -> None:
     """Data-parallel EHL serving: ``PathServer(mesh=(cuda:0, cuda:0),
     batch_sharding="rows")`` on the rooms-M dense artifact, every batch two
     row blocks on the one card's replica, driven like the other paths:
@@ -2642,6 +2656,7 @@ def batch_sharded_path(bx, index, dense_got, s, t, qs, kernels, twins,
           f"in {len(mesh)} row blocks of {BATCH // len(mesh)})")
     srv = PathServer(CudaEngine(bx), batch_size=BATCH, mesh=mesh,
                      batch_sharding=BATCH_ROWS)
+    staged[label] = srv
     run = drive(srv, s, t, index, kernels, twins, label)
     by_path[label] = run["launches"]
     require(run["launches"]["segvis"] > 0
@@ -3048,6 +3063,212 @@ def dryrun_cells() -> None:
           f"started together")
 
 
+def lint_phase() -> None:
+    """The port's invariant pass (``repro_torch.analysis``) over this
+    checkout's ``src/repro_torch`` on the card machine's Python: 0 findings
+    required; the markers by rule and the host seconds printed."""
+    from repro_torch import analysis
+
+    t0 = time.perf_counter()
+    project = analysis.load_project([str(ROOT / "src" / "repro_torch")],
+                                    root=str(ROOT))
+    findings = analysis.run(project)
+    seconds = time.perf_counter() - t0
+    markers: dict = {}      # the pass's own docstrings show the syntax
+    for mod in project.modules:
+        if mod.name.startswith("repro_torch.analysis"):
+            continue
+        for line, names in mod.suppressions.items():
+            for name in names:
+                key = name if line else f"{name} (file)"
+                markers[key] = markers.get(key, 0) + 1
+    for f in findings:
+        print(f"  {f.render()}")
+    print(f"lint: python -m repro_torch.analysis src/repro_torch: "
+          f"{len(findings)} findings over {len(project.modules)} modules, "
+          f"rules {[r.name for r in analysis.rules()]}, markers by rule "
+          f"{dict(sorted(markers.items()))}, host {seconds:.3f} s")
+    require(not findings, f"the port's invariant pass found {len(findings)}")
+
+
+def sync_probe() -> dict:
+    """{wait: syncs reported}: which explicit waits the sync debug mode
+    reports on this build (a stream's, an event's, the device's)."""
+    import torch
+
+    from repro_torch.analysis.syncs import record_syncs
+
+    ev = torch.cuda.Event()
+    ev.record()
+    stream = torch.cuda.current_stream()
+    return {name: len(record_syncs(fn)[1]) for name, fn in (
+        ("Stream.synchronize", stream.synchronize),
+        ("Event.synchronize", ev.synchronize),
+        ("torch.cuda.synchronize", torch.cuda.synchronize))}
+
+
+def padded_batches(eng, s, t, rows: int):
+    """(key, s, t) of the batches a server would dispatch: per routing key
+    in key order, ``rows`` queries at a time, zero-padded."""
+    keys = eng.buckets_of(s, t)
+    for k in np.unique(keys):
+        idx = np.nonzero(keys == k)[0]
+        for lo in range(0, len(idx), rows):
+            sel = idx[lo:lo + rows]
+            sb = np.zeros((rows, 2), np.float32)
+            tb = np.zeros((rows, 2), np.float32)
+            sb[:len(sel)], tb[:len(sel)] = s[sel], t[sel]
+            yield int(k), sb, tb
+
+
+def free_slots_settled(engines: list, rows: int) -> tuple:
+    """(free pinned slots, those whose copy events have completed) of
+    ``engines`` at batch ``rows``: the claim of the ``_slot`` markers, that
+    a free slot's wait returns at once."""
+    free = done = 0
+    for eng in engines:
+        pool_of = getattr(eng, "router", eng)._slots
+        for slot in pool_of.get(rows, []):
+            if slot.busy:
+                continue
+            evs = slot.copied.values() if isinstance(slot.copied, dict) \
+                else [slot.copied]
+            free += 1
+            done += all(ev.query() for ev in evs)
+    return free, done
+
+
+def syncs_phase(engines: dict, s, t, kernels: dict, by_path: dict) -> None:
+    """The dynamic complement of the lint's ``hot-path-sync`` rule: one
+    batch's ``stage`` + ``dispatch_staged`` on each warmed engine (both
+    argmin modes on f32; on a quantized engine an argmin batch the rescue
+    skips and one it takes) under ``torch.cuda.set_sync_debug_mode("warn")``,
+    every reported sync attributed to the innermost frame of
+    ``repro_torch.serving``/``.sharding`` (``analysis.syncs``).  Required:
+    no sync on the f32 engines, every sync at a line the static pass marks
+    for ``hot-path-sync`` (or the line after a marker), the free slots'
+    copy events complete before staging, and the answers equal the
+    synchronous call's bit for bit."""
+    from repro_torch.analysis.syncs import port_project, record_syncs, \
+        unmarked
+    from repro_torch.serving import PathServer
+
+    t0 = time.perf_counter()
+    project = port_project()
+    probe = sync_probe()
+    print("syncs: the sync debug mode reports " + ", ".join(
+        f"{name} {'yes' if n else 'no'}" for name, n in probe.items()))
+    for k in kernels.values():
+        k.launches = 0
+    settled = [0, 0]
+
+    def stage_and_dispatch(eng, sb, tb, key, argmin):
+        """The engines' pending results of one batch, staged and dispatched
+        (a row block per replica under batch sharding)."""
+        reps = eng._replicas if isinstance(eng, PathServer) else [eng]
+        r = len(sb) // len(reps)
+        for n, v in enumerate(free_slots_settled(reps, r)):
+            settled[n] += v
+        return [rep.dispatch_staged(rep.stage(sb[i * r:(i + 1) * r],
+                                              tb[i * r:(i + 1) * r], key),
+                                    key, argmin)
+                for i, rep in enumerate(reps)]
+
+    total = 0
+    for label, eng in engines.items():
+        base = eng.engine if isinstance(eng, PathServer) else eng
+        quantized = getattr(base, "quantized", False)
+        cases = []
+        for key, sb, tb in padded_batches(base, s, t, BATCH):
+            if not quantized:
+                cases = [(key, sb, tb, False, ""), (key, sb, tb, True, "")]
+                break
+            rows = base.rescue_rows
+            base.batch_argmin(sb, tb, key)
+            what = "rescued" if base.rescue_rows > rows else "no rescue"
+            if what not in {c[4] for c in cases}:
+                cases.append((key, sb, tb, True, what))
+            if len(cases) == 2:
+                break
+        cols = []
+        for key, sb, tb, argmin, what in cases:
+            pend, sites = record_syncs(stage_and_dispatch, eng, sb, tb,
+                                       key, argmin)
+            got = tuple(np.concatenate(c) for c in zip(
+                *[p.wait() for p in pend]))
+            want = base.batch_argmin(sb, tb, key) if argmin \
+                else (base.batch(sb, tb, key),)
+            for name, a, b in zip(ANSWERS, got, want):
+                require(np.array_equal(a, b),
+                        f"syncs: {label} staged != sync output {name}")
+            bad = unmarked(sites, project)
+            where: dict = {}
+            for site in sites:
+                where[site.render()] = where.get(site.render(), 0) + 1
+            cols.append(f"argmin={argmin}{' ' + what if what else ''} key "
+                        f"{key}: {len(sites)}" + (" at " + ", ".join(
+                            f"{w} x{n}" for w, n in where.items())
+                            if sites else ""))
+            require(not bad, f"syncs: {label}: a sync at an unmarked line: "
+                    f"{[x.render() for x in bad]}")
+            require(quantized or not sites,
+                    f"syncs: the f32 engine {label} synchronised: {where}")
+            total += len(sites)
+        print(f"syncs: {label}: " + "; ".join(cols))
+    by_path["syncs"] = {n: k.launches for n, k in kernels.items()}
+    require(by_path["syncs"]["segvis"] > 0
+            and by_path["syncs"]["label_join_rowmin"] > 0,
+            f"the syncs batches launched {by_path['syncs']}")
+    require(settled[0] > 0 and settled[0] == settled[1],
+            f"syncs: {settled[1]} of {settled[0]} free slots' copy events "
+            "complete before staging")
+    print(f"syncs: {total} syncs over {len(engines)} engines, every one at a "
+          f"hot-path-sync marker; {settled[1]} of {settled[0]} free slots' "
+          f"copy events complete before staging; launches "
+          f"{by_path['syncs']}; host {time.perf_counter() - t0:.3f} s")
+
+
+def quickstart_phase(kernels: dict, by_path: dict) -> None:
+    """``examples/quickstart_torch.py``'s ``main`` on the card: its batched
+    distances through the kernels equal the plain twins' bit for bit and
+    lie within 1e-4 of the float64 host query."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.core import query, query_batch
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out_text = io.StringIO()
+    with contextlib.redirect_stdout(out_text):
+        out = mod.main(device="cuda")
+    seconds = time.perf_counter() - t0
+    by_path["quickstart"] = {n: k.launches for n, k in kernels.items()}
+    for line in out_text.getvalue().splitlines():
+        print(f"quickstart:   {line}")
+    qs = out["queries"]
+    plain = query_batch(out["packed"], qs.s.astype(np.float32),
+                        qs.t.astype(np.float32)).cpu().numpy()
+    require(np.array_equal(out["d"], plain),
+            "quickstart: use_kernels=True != use_kernels=False")
+    truth = np.array([query(out["index"], a, b, want_path=False)[0]
+                      for a, b in zip(qs.s, qs.t)])
+    rel = near_oracle(out["d"], truth)
+    require(by_path["quickstart"]["segvis"] > 0
+            and by_path["quickstart"]["label_join_rowmin"] > 0,
+            f"the quickstart launched {by_path['quickstart']}")
+    print(f"quickstart: {len(truth)} batched distances on the card == the "
+          f"plain twins' bit for bit, max rel err vs the host query "
+          f"{rel:.3e}; launches {by_path['quickstart']}; host "
+          f"{seconds:.3f} s")
+
+
 def run_main(argv) -> tuple:
     """(final loss, printed lines) of one in-process run of the port's
     training launcher."""
@@ -3193,6 +3414,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    lint_phase()
 
     # -- 2. host indexes: the main path's map and the grid path's map --------
     def host_index(name, seed):
@@ -3394,6 +3616,10 @@ def main() -> None:
     by_path = {}
     print(f"path: {MAP} dense (default policy)")
     srv = PathServer(CudaEngine(bx), batch_size=B)
+    # the warmed engines the ``syncs:`` phase stages one batch through, by
+    # path label (each path adds its own; a PathServer stands for its
+    # replicas)
+    staged = {f"{MAP} dense": srv.engine}
     run = drive(srv, s, t, index, kernels, twins, f"{MAP} dense")
     by_path[f"{MAP} dense"] = run["launches"]
     require(run["launches"]["segvis"] > 0
@@ -3413,7 +3639,8 @@ def main() -> None:
     telemetry_path(bx, index, dense_got, s, t, kernels, twins, by_path)
 
     # -- 6b. the single slab, f32 path and bf16 answers -----------------------
-    slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev, by_path)
+    slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev, by_path,
+              staged)
 
     # -- 6c. the dense path through the continuous batcher --------------------
     async_path(bx, dense_got, s, t, kernels, twins, by_path)
@@ -3453,7 +3680,7 @@ def main() -> None:
 
     # -- 9. quantized path: rooms-M bf16/u16, then f16 answers ---------------
     quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
-                   by_path)
+                   by_path, staged)
 
     # -- 10. a device-budgeted bf16 artifact ----------------------------------
     budgeted_artifact(scene, graph, bx, s, t, qs, dev)
@@ -3464,12 +3691,17 @@ def main() -> None:
     # -- 10c. region sharding: four shards on the card, then the reference's
     # sharded acceptance configuration with a swap under load -------------
     sharded_path(index, bx, sh, gsh, dense_got, s, t, qs, kernels, twins,
-                 dev, by_path)
+                 dev, by_path, staged)
     sharded_acceptance(kernels, twins, dev, by_path)
 
     # -- 10c'. data-parallel EHL: each batch in row blocks over a mesh -------
     batch_sharded_path(bx, index, dense_got, s, t, qs, kernels, twins, dev,
-                       by_path)
+                       by_path, staged)
+
+    # -- 10c''. the syncs the card reports on the staged path, held against
+    # the lint's markers; then the quickstart on the card -------------------
+    syncs_phase(staged, s, t, kernels, by_path)
+    quickstart_phase(kernels, by_path)
 
     # -- 10d. the LM port: tinyllama-1.1b at full width, then the ten
     # architectures reduced (plain PyTorch: no EHL kernel launches) --------

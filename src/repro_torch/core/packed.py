@@ -1380,7 +1380,7 @@ def _width_bucket(bx: BucketedIndex, width: int) -> int:
     return max((k for k, w in enumerate(bx.widths) if w <= width), default=0)
 
 
-@_serving_entry("gather_labels_at_width")
+@_serving_entry("gather_labels_at_width")  # repolint: disable=entry-registry -- library-only full-gather API; no engine calls it, so warmup cannot reach it
 def gather_labels_at_width(bx: BucketedIndex, regions: torch.Tensor,
                            width: int):
     """Gather [B] regions' labels as dense [B, width] tensors.
@@ -1395,7 +1395,7 @@ def gather_labels_at_width(bx: BucketedIndex, regions: torch.Tensor,
     return _gather_bucketed(bx, regions, bucket, width)
 
 
-@_serving_entry("join_gathered")
+@_serving_entry("join_gathered")  # repolint: disable=entry-registry -- library-only full-gather API; no engine calls it, so warmup cannot reach it
 def join_gathered(labels_s, labels_t, s: torch.Tensor, t: torch.Tensor,
                   edges_a: torch.Tensor, edges_b: torch.Tensor,
                   edges_c: torch.Tensor | None = None,

@@ -257,26 +257,31 @@ class DeviceEngine(QueryEngine):
         return fn(self.index, s, t, use_kernels=self.use_kernels)
 
     def batch(self, s, t, bucket: int = 0) -> np.ndarray:
+        # repolint: disable=hot-path-sync -- batch is the synchronous API; host results are its contract
         return self._run(s, t, bucket, want_argmin=False).cpu().numpy()
 
     def batch_argmin(self, s, t, bucket: int = 0):
         res = self._run(s, t, bucket, want_argmin=True)
         if not self.quantized:
+            # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
             return tuple(r.cpu().numpy() for r in res)
         # quantized: 6-tuple — rescue ambiguous-margin rows against the
         # exact residual so argmin winners match the f32 engine bit for bit
         # (one flag read decides)
+        # repolint: disable=hot-path-sync -- documented rescue trigger: one flag word, the exactness contract pays this sync
         amb = res[5].cpu().numpy()
         if not amb.any():
+            # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
             return tuple(r.cpu().numpy() for r in res[:5])
         return self._rescue(res, amb, s, t, bucket)
 
     def _rescue(self, res, amb: np.ndarray, s, t, bucket: int) -> tuple:
         """Splice the exact answers of the ambiguous rows into ``res``."""
         with obs.Stopwatch() as sw:
+            # repolint: disable=hot-path-sync -- exact rescue is the sanctioned sync: rescue_exact copies the residual rows to the device (DESIGN.md §11)
             exact = rescue_exact(self.index, s, t, self.bucket_width(bucket),
                                  res[1], use_kernels=self.use_kernels)
-            out = splice_rescue((*res[:5], amb), exact)
+            out = splice_rescue((*res[:5], amb), exact)  # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync above: the host splice reads both answers
         self.rescue_seconds += sw.seconds
         self.rescue_rows += int(np.count_nonzero(amb))
         obs.REGISTRY.counter("rescue_batches_total", engine=self.name).inc()
@@ -299,7 +304,9 @@ class DeviceEngine(QueryEngine):
             TRACES.see("stage", "cuda", rows, len(pool))
             slot = _Slot(rows)
             pool.append(slot)
-        slot.copied.synchronize()       # never rewrite a slot mid-copy
+        # never rewrite a slot mid-copy
+        # repolint: disable=hot-path-sync -- a free slot's batch was retired (Pending.wait, or the rescue's flag read) after the compute stream waited on this event, so it has completed and this returns at once; only a slot freed by a failed dispatch can wait here
+        slot.copied.synchronize()
         slot.busy = True
         return slot
 
@@ -309,8 +316,9 @@ class DeviceEngine(QueryEngine):
         if not self._on_card():
             return super().stage(s, t, bucket)
         dev = self.index.device
+        # repolint: disable=hot-path-sync -- normalizes host inputs before the H2D enqueue; nothing lives on device yet
         s = np.asarray(s, np.float32)
-        t = np.asarray(t, np.float32)
+        t = np.asarray(t, np.float32)  # repolint: disable=hot-path-sync -- same host-input normalization as the line above
         slot = self._slot(len(s))
         slot.s.numpy()[:] = s
         slot.t.numpy()[:] = t
@@ -353,7 +361,8 @@ class DeviceEngine(QueryEngine):
                 if not want_argmin:
                     res = (res,)
                 elif self.quantized:
-                    amb = res[5].cpu().numpy()      # the sanctioned sync
+                    # repolint: disable=hot-path-sync -- documented rescue trigger: one flag word, the exactness contract pays this sync
+                    amb = res[5].cpu().numpy()
                     if amb.any():
                         slot.busy = False
                         return Pending(self._rescue(res, amb, staged.s,

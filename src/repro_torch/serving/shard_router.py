@@ -60,6 +60,12 @@ from repro_torch.core.packed import (TRACES, covis_blocked,
                                      join_masked)
 
 
+def _copy_unpinned(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``: the unpinned staging of the synchronous
+    ``batch``/``batch_argmin`` path and of CPU tensors."""
+    return torch.from_numpy(x).to(dev)  # repolint: disable=hot-path-sync -- unpinned staging backs the synchronous path and CPU tensors; the card's split phase stages through pinned slots
+
+
 class _ShardSlot:
     """One pinned staging slot of a routed batch: its endpoints and the
     local region ids of both sides going in, the five result planes coming
@@ -136,10 +142,13 @@ class ShardRouter:
         self.on_card = self.devices[0].type == "cuda"
         self.quantized = bool(self.shards
                               and self.shards[0].layout.quantized)
-        # per-shard quantization error bounds, host floats: join_staged sums
-        # the two sides' bounds into the argmin ambiguity threshold
-        self._qerr = [float(bx.qerr) if bx.qerr is not None else 0.0
-                      for bx in self.shards]
+        # the argmin ambiguity threshold join_staged hands the join, per
+        # (home, t-side) shard pair: the float32 sum of the two sides'
+        # quantization error bounds, made here so dispatch reads no value
+        qerr = [float(bx.qerr) if bx.qerr is not None else 0.0
+                for bx in self.shards]
+        self._qerr2 = [[float(np.float32(a) + np.float32(b)) for b in qerr]
+                       for a in qerr]
         self.width_classes = np.asarray(sharded.width_classes, np.int64)
         self._nw = len(self.width_classes)
         # per-shard clip bound: foreign/padding cells can carry local ids
@@ -162,7 +171,7 @@ class ShardRouter:
     def _cells(self, pts: np.ndarray) -> np.ndarray:
         """Float32 floor-divide cell location — mirrors ``locate_regions``
         bit for bit so host routing and device gathers agree."""
-        p = np.asarray(pts, np.float32)
+        p = np.asarray(pts, np.float32)  # repolint: disable=hot-path-sync -- host routing math on host inputs, no device value involved
         cs = np.float32(self.sharded.cell_size)
         ix = np.clip((p[:, 0] / cs).astype(np.int32), 0, self.sharded.nx - 1)
         iy = np.clip((p[:, 1] / cs).astype(np.int32), 0, self.sharded.ny - 1)
@@ -237,7 +246,9 @@ class ShardRouter:
             slot = _ShardSlot(rows)
             pool.append(slot)
         for ev in slot.copied.values():
-            ev.synchronize()            # never rewrite a slot mid-copy
+            # never rewrite a slot mid-copy
+            # repolint: disable=hot-path-sync -- a free slot's group was retired (Pending.wait, or the rescue's flag read) after its devices' compute streams waited on this event, so it has completed and this returns at once; only a slot freed by a failed dispatch can wait here
+            ev.synchronize()
         slot.busy = True
         return slot
 
@@ -260,8 +271,9 @@ class ShardRouter:
         """
         t_stage0 = time.perf_counter()
         i, j, _ = self.decode_key(key)
+        # repolint: disable=hot-path-sync -- normalizes host inputs before the H2D enqueue; nothing lives on device yet
         s = np.asarray(s, np.float32)
-        t = np.asarray(t, np.float32)
+        t = np.asarray(t, np.float32)  # repolint: disable=hot-path-sync -- same host-input normalization as the line above
         cs, ct = self._cells(s), self._cells(t)
         loc_s = np.minimum(self.sharded.cell_local[cs], self._rmax[i])
         loc_t = np.minimum(self.sharded.cell_local[ct], self._rmax[j])
@@ -287,11 +299,11 @@ class ShardRouter:
                         gj = slot.loc_t.to(dev, non_blocking=True)
                     slot.event(slot.copied, dev).record(stream)
         else:
-            sh, th = torch.from_numpy(s), torch.from_numpy(t)
             for dev in devs:
-                s_on[dev], t_on[dev] = sh.to(dev), th.to(dev)
-            gi = torch.from_numpy(loc_s.astype(np.int32)).to(dev_i)
-            gj = torch.from_numpy(loc_t.astype(np.int32)).to(dev_j)
+                s_on[dev] = _copy_unpinned(s, dev)
+                t_on[dev] = _copy_unpinned(t, dev)
+            gi = _copy_unpinned(loc_s.astype(np.int32), dev_i)
+            gj = _copy_unpinned(loc_t.astype(np.int32), dev_j)
         self._stage_ms.record((time.perf_counter() - t_stage0) * 1e3)
         return StagedGroup(key=int(key), i=i, j=j, parts=parts, s=s, t=t,
                            s_on=s_on, t_on=t_on, loc_s=gi, loc_t=gj,
@@ -377,10 +389,8 @@ class ShardRouter:
         with self.on(dev_i):
             qerr2 = None
             if want_argmin and self.quantized:
-                qerr2 = torch.full(
-                    (), float(np.float32(self._qerr[st.i])
-                              + np.float32(self._qerr[st.j])),
-                    dtype=torch.float32, device=dev_i)
+                qerr2 = torch.full((), self._qerr2[st.i][st.j],
+                                   dtype=torch.float32, device=dev_i)
             return join_masked(
                 st.masked_s, st.masked_t, st.s_on[dev_i], st.t_on[dev_i],
                 st.covis, use_kernels=self.use_kernels,
@@ -395,8 +405,9 @@ class ShardRouter:
         dev_i, dev_j = self.devices[i], self.devices[j]
         ri = self.shards[i].residual
         rj = self.shards[j].residual
+        # repolint: disable=hot-path-sync -- exact rescue is the sanctioned sync: correctness over overlap (DESIGN.md §11)
         ds = torch.from_numpy(ri.gather_d(ri.locate(st.s), W)).to(dev_i)
-        dt = torch.from_numpy(rj.gather_d(rj.locate(st.t), W)).to(dev_j)
+        dt = torch.from_numpy(rj.gather_d(rj.locate(st.t), W)).to(dev_j)  # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync above
         with self.on(dev_i):
             ms = gather_masked_exact(self.shards[i], st.s_on[dev_i], ds, W,
                                      use_kernels=self.use_kernels)
@@ -408,6 +419,21 @@ class ShardRouter:
             return join_masked(ms, mt, st.s_on[dev_i], st.t_on[dev_i],
                                st.covis, use_kernels=self.use_kernels,
                                want_argmin=True)
+
+    def dispatch(self, s, t, key: int, want_argmin: bool = False):
+        """Answer one routed sub-batch on its destination shard's device.
+
+        Every query in ``s``/``t`` must carry routing key ``key`` (padding
+        rows are exempt — their answers are garbage the caller discards,
+        exactly like per-bucket dispatch under-width padding).  Returns
+        device tensors; ``(i, j, covis participants)`` ride along for the
+        caller's stats.  ``stage`` + ``fold`` + ``join_staged`` is the
+        same path cut for pipelining.
+        """
+        st = self.stage(s, t, key)
+        self.fold(st)
+        return self.join_staged(st, want_argmin=want_argmin), \
+            (st.i, st.j, st.parts)
 
     # ------------------------------------------------------------- warmup
     def warmup(self, batch_size: int, want_argmin: bool = False) -> None:

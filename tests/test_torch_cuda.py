@@ -925,6 +925,53 @@ def test_sharded_dispatch_staged_never_syncs(card, rooms_s, layout, argmin):
         np.testing.assert_array_equal(w, g)
 
 
+def _one_batch(eng, s, t, rows: int = 64):
+    """The busiest routing key's first ``rows`` queries, padded."""
+    keys = eng.buckets_of(s, t)
+    key = int(max(np.unique(keys), key=lambda k: int((keys == k).sum())))
+    sel = np.nonzero(keys == key)[0][:rows]
+    sb = np.zeros((rows, 2), np.float32)
+    tb = np.zeros((rows, 2), np.float32)
+    sb[:len(sel)], tb[:len(sel)] = s[sel], t[sel]
+    return sb, tb, key
+
+
+@pytest.mark.parametrize("engine", ["dense", "sharded"])
+@pytest.mark.parametrize("layout,argmin", [("f32", False), ("f32", True),
+                                           ("bf16", True)])
+def test_staged_syncs_sit_at_marked_lines(card, rooms_s, engine, layout,
+                                          argmin):
+    """chip_smoke's ``syncs:`` check at rooms-S, batch 64: one batch's
+    ``stage`` + ``dispatch_staged`` under the sync debug mode ("warn"),
+    each reported sync attributed to its line on the hot path.  The f32
+    engines (dense and four shards) see none; on bf16 every sync (the
+    argmin's flag read, a rescue) sits at a ``hot-path-sync`` marker; the
+    answers equal the synchronous call's."""
+    from repro_torch.analysis.syncs import record_syncs, unmarked
+    from repro_torch.serving import CudaEngine
+    from repro_torch.sharding import ShardedQueryEngine
+
+    idx, s, t = rooms_s
+    eng = (CudaEngine(_artifact(idx, layout, card)) if engine == "dense"
+           else ShardedQueryEngine(_sharded(idx, layout, card),
+                                   backend="cuda"))
+    eng.warmup(64, want_argmin=argmin)
+    sb, tb, key = _one_batch(eng, s, t)
+    pending, sites = record_syncs(
+        lambda: eng.dispatch_staged(eng.stage(sb, tb, key), key,
+                                    want_argmin=argmin))
+    got = pending.wait()
+    assert unmarked(sites) == [], [x.render() for x in sites]
+    if layout == "f32":
+        assert sites == [], [x.render() for x in sites]
+    else:
+        assert sites, "the quantized argmin read no ambiguity flag"
+    want = eng.batch_argmin(sb, tb, key) if argmin \
+        else (eng.batch(sb, tb, key),)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
 @pytest.mark.parametrize("layout", ["f32", "bf16"])
 def test_sharded_warmup_leaves_nothing_cold_on_card(card, rooms_s, layout):
     """After ``warmup(paths=True)`` the sharded engine's live traffic

@@ -179,7 +179,8 @@ def _imports(path: pathlib.Path):
     (REPO / "src" / "repro_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "examples" / "pathfind_serve_torch.py",
         REPO / "examples" / "serve_timing_torch.py",
-        REPO / "examples" / "train_lm_torch.py"],
+        REPO / "examples" / "train_lm_torch.py",
+        REPO / "examples" / "quickstart_torch.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_neither_jax_nor_reference(path):
     for mod in _imports(path):

@@ -364,6 +364,41 @@ def test_cross_shard_entries_equal_reference(port_sharded, ref_sharded,
     np.testing.assert_array_equal(got[0], eng.router.join_staged(st).numpy())
 
 
+@pytest.mark.parametrize("argmin", [False, True])
+@pytest.mark.parametrize("cross", [True, False], ids=["cross", "home"])
+def test_router_dispatch_equals_reference(port_sharded, ref_sharded,
+                                          queries, cross, argmin):
+    """``ShardRouter.dispatch`` (stage, fold, join) returns what the
+    reference's does on one routed group, a cross-shard one and the
+    busiest same-shard one: distances at rtol 1e-6, argmin ids equal except
+    at the join's ties, and ``(i, j, covis participants)`` equal."""
+    s, t = queries
+    sh, rsh = port_sharded[("f32", None)], ref_sharded[("f32", None)]
+    eng = ShardedQueryEngine(sh, backend="torch")
+    keys = eng.buckets_of(s, t)
+    if cross:
+        key = _cross_key(eng, s, t)
+    else:
+        home = [k for k in np.unique(keys)
+                if eng.router.decode_key(k)[0] == eng.router.decode_key(k)[1]]
+        key = max(home, key=lambda k: int((keys == k).sum()))
+    m = keys == key
+    got, got_route = eng.router.dispatch(s[m], t[m], int(key),
+                                         want_argmin=argmin)
+    want, want_route = RefRouter(rsh).dispatch(s[m], t[m], int(key),
+                                               want_argmin=argmin)
+    assert got_route[:2] == tuple(int(x) for x in want_route[:2])
+    assert [int(k) for k in got_route[2]] == [int(k) for k in want_route[2]]
+    if not argmin:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+        return
+    st = eng.router.stage(s[m], t[m], int(key))
+    eng.router.fold(st)
+    assert_matches_reference([g.numpy() for g in got],
+                             [np.asarray(w) for w in want],
+                             _ties(st.masked_s, st.masked_t))
+
+
 def test_full_gather_entries_equal_the_bucket_query(port_bx, queries):
     """The library-only full-gather pair: ``gather_labels_at_width`` of
     both sides at a dispatch bucket's width, then ``join_gathered`` with
