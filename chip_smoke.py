@@ -841,24 +841,25 @@ def quantized_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
             f"rooms-M bf16 path launches: {run['launches']}")
     # (a) CudaEngine == TorchEngine, (d) the float64 oracle; the rescue
     # share of one full argmin pass
-    eng.rescue_rows = 0
-    eng.rescue_seconds = 0.0
     batches = srv.stats.batches
     rescued0 = series_of(obs.REGISTRY, "rescue_batches_total", "engine")
+    rows0, ms0 = rescue_totals(obs.REGISTRY)
     got = check_answers(srv, PathServer(TorchEngine(qbx), batch_size=BATCH),
                         run, s, t, index, qs, qerr=qerr)
     batches = srv.stats.batches - batches
     export_round_trips(obs.REGISTRY)
     rescued = grown(series_of(obs.REGISTRY, "rescue_batches_total",
                               "engine"), rescued0)
+    rows, ms = (a - b for a, b in zip(rescue_totals(obs.REGISTRY),
+                                      (rows0, ms0)))
     # (the twin engine's rescues land on its own row, engine="torch")
-    require(rescued.get("cuda", 0) > 0 and eng.rescue_rows > 0,
+    require(rescued.get("cuda", 0) > 0 and rows > 0,
             f"rescue_batches_total grew by {rescued}, the CudaEngine "
-            f"rescued {eng.rescue_rows} rows")
+            f"rescued {rows:g} rows")
     print(f"rescue: one argmin pass of {len(s)} queries: {rescued['cuda']:g}"
           f" of {batches} batches rescued (rescue_batches_total"
-          f"{{engine=cuda}}), {eng.rescue_rows} of {batches * BATCH} rows "
-          f"(padding included), host {1e3 * eng.rescue_seconds:.3f} ms")
+          f"{{engine=cuda}}), {rows:g} of {batches * BATCH} rows "
+          f"(rescue_rows_total, padding included), host {ms:.3f} ms")
     # (b) distances within 2·qerr of the f32 path, (c) winners bit for bit
     dense_d = dense_got[0]
     diff = np.abs(run["d"] - dense_d)[np.isfinite(dense_d)]
@@ -1042,10 +1043,13 @@ def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
     qerr = float(qpk.qerr)
     eng = CudaEngine(qpk)
     rescued0 = series_of(obs.REGISTRY, "rescue_batches_total", "engine")
+    rows0, ms0 = rescue_totals(obs.REGISTRY)
     qgot = PathServer(eng, batch_size=BATCH)._dispatch(s, t,
                                                        want_argmin=True)
     rescued = grown(series_of(obs.REGISTRY, "rescue_batches_total",
                               "engine"), rescued0).get("cuda", 0)
+    rows, ms = (a - b for a, b in zip(rescue_totals(obs.REGISTRY),
+                                      (rows0, ms0)))
     require(within_qerr(qgot[0], got[0], qerr),
             "bf16 slab distances beyond 2·qerr of the f32 slab")
     for name, a, b in zip(ANSWERS[1:], qgot[1:], got[1:]):
@@ -1056,8 +1060,7 @@ def slab_path(index, bx, dense_got, s, t, qs, kernels, twins, dev,
           f"{float(np.abs(qgot[0][fin] - got[0][fin]).max(initial=0.0)):.6e}"
           f" (2·qerr {2 * qerr:.6e}); covis, via_s, hub, via_t equal the f32 "
           f"slab's bit for bit; rescue: {rescued:g} batches, "
-          f"{eng.rescue_rows} rows (padding included), host "
-          f"{1e3 * eng.rescue_seconds:.3f} ms")
+          f"{rows:g} rows (padding included), host {ms:.3f} ms")
 
 
 def serve_async(srv, s, t, chunks, argmin: bool = False):
@@ -1079,6 +1082,23 @@ def serve_async(srv, s, t, chunks, argmin: bool = False):
 def series_of(reg, name: str, key: str) -> dict:
     """{label ``key``: value} of one registry series family."""
     return {dict(m.labels).get(key): m.value for m in reg.series(name)}
+
+
+def rescue_totals(reg, engine: str = "cuda") -> tuple:
+    """(rows rescued, host ms of the rescues) of ``engine``'s registry
+    series so far: ``rescue_rows_total`` and the sum of ``rescue_ms``."""
+    return (reg.total("rescue_rows_total", engine=engine),
+            sum(h.sum for h in reg.find("rescue_ms", engine=engine)))
+
+
+def rows_rescued(eng) -> float:
+    """Rows ``eng`` rescued so far: a sharded engine's own count, a device
+    engine's ``rescue_rows_total`` series."""
+    from repro_torch import obs
+
+    own = getattr(eng, "rescue_rows", None)
+    return own if own is not None else rescue_totals(obs.REGISTRY,
+                                                     eng.name)[0]
 
 
 def grown(now: dict, before: dict) -> dict:
@@ -3183,9 +3203,9 @@ def syncs_phase(engines: dict, s, t, kernels: dict, by_path: dict) -> None:
             if not quantized:
                 cases = [(key, sb, tb, False, ""), (key, sb, tb, True, "")]
                 break
-            rows = base.rescue_rows
+            rows = rows_rescued(base)
             base.batch_argmin(sb, tb, key)
-            what = "rescued" if base.rescue_rows > rows else "no rescue"
+            what = "rescued" if rows_rescued(base) > rows else "no rescue"
             if what not in {c[4] for c in cases}:
                 cases.append((key, sb, tb, True, what))
             if len(cases) == 2:

@@ -1,0 +1,23 @@
+"""Host microseconds a query waits on the device: the child spans
+``engine.readback`` (each batch's answers copied back, and on a quantized
+argmin batch the ambiguity flag read that decides the rescue; the one
+place the synchronous path blocks on the card) of the traced window's sync
+requests over their queries.  None where the program records no child
+spans."""
+
+NAME = "engine.readback_us_per_query"
+UNIT = "us"
+LAYER = "serving.query_engine: device calls"
+SOURCE = "program_span"
+MOVES = "qps"
+SPANS = ("engine.readback",)
+
+
+def read(ctx):
+    tr = [t for t in ctx.traces if t.kind == "sync" and t.attrs.get("n")]
+    n = sum(t.attrs["n"] for t in tr)
+    secs = [sp.seconds for t in tr for sp in getattr(t, "spans", ())
+            if sp.name in SPANS]
+    if not n or not secs:
+        return None
+    return 1e6 * sum(secs) / n

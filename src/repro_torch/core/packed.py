@@ -1302,6 +1302,13 @@ def _join_endpoints(idx, masked_s, masked_t, s: torch.Tensor,
                         want_argmin, qerr2=qerr2)
 
 
+def device_endpoints(dev: torch.device, s, t) -> tuple:
+    """(s, t) as float32 tensors on ``dev``: a host batch is copied there;
+    endpoints already there are returned as they are."""
+    return (torch.as_tensor(s, dtype=torch.float32, device=dev),
+            torch.as_tensor(t, dtype=torch.float32, device=dev))
+
+
 def query_batch_at_bucket(bx: BucketedIndex, s: torch.Tensor, t: torch.Tensor,
                           bucket: int, use_kernels: bool = False,
                           want_argmin: bool = False):
@@ -1313,8 +1320,7 @@ def query_batch_at_bucket(bx: BucketedIndex, s: torch.Tensor, t: torch.Tensor,
     quantized layout a sixth ``amb`` [B] bool: the rows to rescue
     (:func:`rescue_exact`).
     """
-    s = torch.as_tensor(s, dtype=torch.float32, device=bx.device)
-    t = torch.as_tensor(t, dtype=torch.float32, device=bx.device)
+    s, t = device_endpoints(bx.device, s, t)
     ms = _fold_endpoint(bx, s, bucket, use_kernels=use_kernels)
     mt = _fold_endpoint(bx, t, bucket, use_kernels=use_kernels)
     qerr2 = (bx.qerr + bx.qerr
@@ -1326,8 +1332,7 @@ def query_batch_at_bucket(bx: BucketedIndex, s: torch.Tensor, t: torch.Tensor,
 def query_batch(idx: PackedIndex, s, t, use_kernels: bool = False
                 ) -> torch.Tensor:
     """Batched Eq. 1-3 over the single slab: [B] float32 distances."""
-    s = torch.as_tensor(s, dtype=torch.float32, device=idx.device)
-    t = torch.as_tensor(t, dtype=torch.float32, device=idx.device)
+    s, t = device_endpoints(idx.device, s, t)
     ms = _fold_endpoint(idx, s, use_kernels=use_kernels)
     mt = _fold_endpoint(idx, t, use_kernels=use_kernels)
     return _join_endpoints(idx, ms, mt, s, t, use_kernels=use_kernels)
@@ -1337,8 +1342,7 @@ def query_batch_argmin(idx: PackedIndex, s, t, use_kernels: bool = False):
     """Distances + winning (covis, via_s, hub, via_t) label ids over the
     single slab; a quantized layout adds the sixth ``amb`` [B] bool, the
     rows to rescue (:func:`rescue_exact`)."""
-    s = torch.as_tensor(s, dtype=torch.float32, device=idx.device)
-    t = torch.as_tensor(t, dtype=torch.float32, device=idx.device)
+    s, t = device_endpoints(idx.device, s, t)
     ms = _fold_endpoint(idx, s, use_kernels=use_kernels)
     mt = _fold_endpoint(idx, t, use_kernels=use_kernels)
     qerr2 = idx.qerr + idx.qerr if idx.layout.quantized else None
@@ -1504,24 +1508,36 @@ def rescue_exact(bx, s, t, width: int, covis, use_kernels: bool = False):
     Full-batch recomputation at the quantized run's shapes; the caller
     splices only the ambiguous rows.  ``covis`` is the quantized run's
     co-visibility bit — pure geometry, identical in both layouts.  Returns
-    the exact 5-tuple.
+    the exact 5-tuple.  A sampled request's trace gets the child spans
+    ``rescue.residual`` (the host rows), ``rescue.upload`` (their copies)
+    and ``rescue.join`` (the exact gather and join enqueued).
     """
     res = bx.residual
     if res is None:
         raise ValueError("rescue_exact needs a quantized index with its "
                          "ResidualTable attached")
-    s = _host(s).astype(np.float32)
-    t = _host(t).astype(np.float32)
-    ds = res.gather_d(res.locate(s), width)
-    dt = res.gather_d(res.locate(t), width)
+    with obs.span("rescue.residual", annotate=True):
+        s = _host(s).astype(np.float32)
+        t = _host(t).astype(np.float32)
+        ds = res.gather_d(res.locate(s), width)
+        dt = res.gather_d(res.locate(t), width)
     dev = bx.device
-    st, tt = torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
-    ms = gather_masked_exact(bx, st, torch.from_numpy(ds).to(dev), width,
-                             use_kernels=use_kernels)
-    mt = gather_masked_exact(bx, tt, torch.from_numpy(dt).to(dev), width,
-                             use_kernels=use_kernels)
-    return join_masked(ms, mt, st, tt, covis, use_kernels=use_kernels,
-                       want_argmin=True)
+
+    def fold(pts, d):
+        # one side's rows on the device only while its gather runs
+        with obs.span("rescue.upload"):
+            d = torch.from_numpy(d).to(dev)
+        with obs.span("rescue.join"):
+            return gather_masked_exact(bx, pts, d, width,
+                                       use_kernels=use_kernels)
+
+    with obs.span("rescue.upload"):
+        st, tt = torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
+    ms = fold(st, ds)
+    mt = fold(tt, dt)
+    with obs.span("rescue.join"):
+        return join_masked(ms, mt, st, tt, covis, use_kernels=use_kernels,
+                           want_argmin=True)
 
 
 def splice_rescue(quant6, exact5) -> tuple:
@@ -1530,8 +1546,10 @@ def splice_rescue(quant6, exact5) -> tuple:
     *quant5, amb = quant6
     outs = [_host(a).copy() for a in quant5]
     m = _host(amb)
-    for o, e in zip(outs, exact5):
-        o[m] = _host(e)[m]
+    exact5 = [_host(e) for e in exact5]
+    with obs.annotate("rescue.splice"):     # host only: the reads are done
+        for o, e in zip(outs, exact5):
+            o[m] = e[m]
     return tuple(outs)
 
 

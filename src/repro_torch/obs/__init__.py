@@ -10,6 +10,9 @@ The port's copies of the jax-free parts of the reference's ``repro.obs``
   (:func:`prometheus_text`, :func:`json_snapshot`) read;
 * :class:`Trace`/:class:`TraceLog`/:class:`HeadSampler` — per-request
   span trees, head-sampled with an always-sample-on-slow override;
+  :func:`stage_scope`/:func:`span`/:func:`current_trace` — the child spans
+  that engine code records below a stage, and :func:`annotate`, their
+  names on a running ``torch.profiler``'s host timeline;
 * :class:`EventLog` — structured ring + JSONL sink for discrete state
   changes (swaps, drift, sheds, requeues, quant fallbacks, covis);
 * :class:`CompileCapture` (:func:`enable_profile`) — cold serving entries,
@@ -33,23 +36,24 @@ from .metrics import (DEFAULT_LATENCY_BOUNDS_MS, Counter, Gauge, Histogram,
 from .export import json_snapshot, parse_prometheus, prometheus_text
 from .profile import (CompileCapture, CompileRecord, disable_profile,
                       enable_profile, kernel_cost, profiled)
-from .timing import Stopwatch, monotonic
-from .trace import (ASYNC_STAGES, BUILD_STAGES, SYNC_STAGES, HeadSampler,
-                    Span, Trace, TraceLog)
+from .timing import Stopwatch, monotonic, monotonic_ns
+from .trace import (ASYNC_STAGES, BUILD_STAGES, SYNC_STAGES, ChildSpan,
+                    HeadSampler, Span, Trace, TraceLog, annotate,
+                    current_trace, span, stage_scope)
 from .views import StatsView
 
 __all__ = [
-    "ASYNC_STAGES", "BUILD_STAGES", "SYNC_STAGES",
+    "ASYNC_STAGES", "BUILD_STAGES", "SYNC_STAGES", "ChildSpan",
     "CompileCapture", "CompileRecord", "Counter",
     "DEFAULT_LATENCY_BOUNDS_MS",
     "EventLog", "Gauge", "HeadSampler", "Histogram", "LOCK_RANKS",
     "LockOrderError", "MetricsRegistry", "OrderedLock",
     "REGISTRY", "Span", "StatsView", "Stopwatch", "Telemetry", "Trace",
-    "TraceLog",
+    "TraceLog", "annotate", "current_trace",
     "disable_profile", "enable_profile", "held_locks",
     "json_snapshot", "kernel_cost", "lock_check_enabled", "log_bounds",
-    "make_lock", "monotonic", "next_instance_id",
-    "parse_prometheus", "profiled", "prometheus_text",
+    "make_lock", "monotonic", "monotonic_ns", "next_instance_id",
+    "parse_prometheus", "profiled", "prometheus_text", "span", "stage_scope",
 ]
 
 

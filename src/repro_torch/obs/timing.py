@@ -17,6 +17,12 @@ def monotonic() -> float:
     return time.perf_counter()
 
 
+def monotonic_ns() -> int:
+    """The same clock in integer nanoseconds (``time.perf_counter_ns``):
+    the stamps of a trace's child spans."""
+    return time.perf_counter_ns()
+
+
 class Stopwatch:
     """Monotonic stopwatch: ``lap()`` returns-and-restarts, or use as a
     context manager and read ``.seconds`` after exit."""

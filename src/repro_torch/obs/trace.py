@@ -19,14 +19,29 @@ retired group, the one host sync of that path.
 :class:`HeadSampler` decides once per request whether to build a trace
 (deterministic leaky bucket at ``sample_rate``, no RNG), with an
 always-sample override for requests slower than ``slow_ms``.
+
+Below the stages a sampled request records *child spans*
+(:class:`ChildSpan`): intervals on ``perf_counter_ns`` inside a stage or
+inside another child span, which never enter ``stages``.  The serving code
+opens them with :func:`span` and finds the request's trace through a
+thread-local that :func:`stage_scope` sets, so an unsampled request (no
+current trace) pays one lookup and one ``None`` check a span.  A span
+opened with ``annotate=True`` also opens a ``torch.profiler`` annotation
+of its own name while a profiler is enabled, so the profiler's host
+timeline carries the port's names; only spans that launch no device work
+do, since an annotation around a launch becomes a device-side interval.
 """
 
 from __future__ import annotations
 
+import itertools
+import sys
+import threading
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 from .locks import make_lock
+from .timing import monotonic_ns
 
 ASYNC_STAGES: Tuple[str, ...] = (
     "admission", "queue_wait", "stage", "dispatch", "pipeline_wait",
@@ -59,10 +74,62 @@ class Span:
         return {"name": self.name, "t0": self.t0, "seconds": self.seconds}
 
 
-class Trace:
-    """A closed span tree for one request."""
+#: request ids of the process, one per trace
+_RIDS = itertools.count(1)
 
-    __slots__ = ("kind", "stages", "attrs", "t_start", "t_end", "closed")
+
+class ChildSpan:
+    """One interval below a stage: its ``name``, its request's ``rid``, the
+    name of the stage or span it sits under (``parent``; ``up`` is that
+    span, None under a stage) and its ends on ``perf_counter_ns``.  Made
+    by :func:`span`, whose ``with`` block it times."""
+
+    __slots__ = ("name", "rid", "parent", "up", "start_ns", "end_ns",
+                 "_trace", "_annotate")
+
+    def __init__(self, trace: "Trace", name: str, annotate: bool):
+        self.name = name
+        self.rid = trace.rid
+        self._trace = trace
+        self._annotate = annotate   # the flag; once entered, the annotation
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+    def __enter__(self) -> "ChildSpan":
+        tr = self._trace
+        top = tr._open[-1]          # the stage, or the innermost open span
+        if isinstance(top, ChildSpan):
+            self.up, self.parent = top, top.name
+        else:
+            self.up, self.parent = None, top
+        tr._open.append(self)
+        tr.spans.append(self)
+        self.start_ns = monotonic_ns()
+        if self._annotate:
+            self._annotate = _annotation(self.name)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._annotate:
+            self._annotate.__exit__(None, None, None)
+        self.end_ns = monotonic_ns()
+        self._trace._open.pop()
+        self._trace = self._annotate = None
+
+    def to_dict(self, t_start: float, children: list) -> dict:
+        return {"name": self.name, "t0": self.start_ns * 1e-9 - t_start,
+                "seconds": self.seconds, "rid": self.rid,
+                "parent": self.parent, "children": children}
+
+
+class Trace:
+    """A closed span tree for one request: the stages, and the child
+    spans recorded below them."""
+
+    __slots__ = ("kind", "stages", "attrs", "t_start", "t_end", "closed",
+                 "rid", "spans", "_open")
 
     def __init__(self, kind: str = "async", **attrs):
         self.kind = kind
@@ -71,6 +138,9 @@ class Trace:
         self.t_start: Optional[float] = None
         self.t_end: Optional[float] = None
         self.closed = False
+        self.rid = next(_RIDS)
+        self.spans: List[ChildSpan] = []    # in the order they opened
+        self._open: list = []               # stage name, then open spans
 
     def stage(self, name: str, seconds: float) -> None:
         self.stages[name] = self.stages.get(name, 0.0) + float(seconds)
@@ -98,22 +168,131 @@ class Trace:
             if required is None else required
         return self.closed and all(s in self.stages for s in req)
 
+    def _below(self, stage: Optional[str], up: Optional[ChildSpan]) -> list:
+        t0 = self.t_start or 0.0
+        return [sp.to_dict(t0, self._below(None, sp)) for sp in self.spans
+                if sp.up is up and (up is not None or sp.parent == stage)]
+
     def tree(self) -> dict:
-        """Root span with one child per stage, in taxonomy order."""
+        """Root span with one child per stage, in taxonomy order, and the
+        child spans nested under their stage."""
         order = STAGE_TAXONOMY.get(self.kind, SYNC_STAGES)
         names = [s for s in order if s in self.stages] + \
             [s for s in self.stages if s not in order]
         t, children = 0.0, []
         for name in names:
             dur = self.stages[name]
-            children.append(Span(name, t, dur).to_dict())
+            children.append({**Span(name, t, dur).to_dict(),
+                             "children": self._below(name, None)})
             t += dur
-        return {"name": f"request/{self.kind}", "t0": 0.0,
+        return {"name": f"request/{self.kind}", "t0": 0.0, "rid": self.rid,
                 "seconds": self.e2e_seconds, "attrs": dict(self.attrs),
                 "closed": self.closed, "children": children}
 
     def to_dict(self) -> dict:
         return self.tree()
+
+
+# ------------------------------------------------- the current trace
+class _Local(threading.local):
+    trace: Optional[Trace] = None   # a class default: no miss to raise
+
+
+_LOCAL = _Local()
+
+
+class _Null:
+    """The context of an unsampled request: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NULL = _Null()
+
+
+def current_trace() -> Optional[Trace]:
+    """The trace of the request this thread serves now (None: unsampled,
+    or outside a :func:`stage_scope`)."""
+    return _LOCAL.trace
+
+
+def _profiling() -> bool:
+    """A torch profiler is recording (torch's own module-level flag; no
+    torch import here)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _open_annotation(name: str):
+    """A ``torch.profiler`` annotation called ``name`` (entered by the
+    caller)."""
+    from torch.autograd.profiler import record_function
+    return record_function(name)
+
+
+def _annotation(name: str):
+    """An entered annotation while a profiler records, else None."""
+    if not _profiling():
+        return None
+    rf = _open_annotation(name)
+    rf.__enter__()
+    return rf
+
+
+class _Scope:
+    """``trace`` is the thread's current trace, under ``stage``, for the
+    length of a ``with`` block."""
+
+    __slots__ = ("trace", "stage", "annotate", "prev", "rf")
+
+    def __init__(self, trace: Trace, stage: str, annotate: bool):
+        self.trace, self.stage, self.annotate = trace, stage, annotate
+
+    def __enter__(self) -> Trace:
+        self.prev = _LOCAL.trace
+        _LOCAL.trace = self.trace
+        self.trace._open.append(self.stage)
+        self.rf = _annotation(self.stage) if self.annotate else None
+        return self.trace
+
+    def __exit__(self, *exc) -> None:
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        self.trace._open.pop()
+        _LOCAL.trace = self.prev
+        self.prev = self.rf = None
+
+
+def stage_scope(trace: Optional[Trace], stage: str, annotate: bool = False):
+    """Make ``trace`` current under ``stage`` for a ``with`` block, so the
+    engine code below records its child spans there; ``annotate``: the
+    stage launches no device work, so a profiler sees its name.  Records
+    no time: the stage's seconds stay the caller's lap.  No-op for an
+    unsampled request (``trace`` None)."""
+    return _NULL if trace is None else _Scope(trace, stage, annotate)
+
+
+def span(name: str, annotate: bool = False):
+    """A child span of the current trace for a ``with`` block, under the
+    innermost open stage or span; a no-op without a current trace.
+    ``annotate=True`` only for host work that launches nothing on the
+    device."""
+    tr = _LOCAL.trace
+    return _NULL if tr is None else ChildSpan(tr, name, annotate)
+
+
+def annotate(name: str):
+    """A profiler annotation only (no span) around host work that launches
+    nothing, for a sampled request while a profiler records."""
+    if _LOCAL.trace is None or not _profiling():
+        return _NULL
+    return _open_annotation(name)
 
 
 class HeadSampler:

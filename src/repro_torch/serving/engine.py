@@ -17,7 +17,10 @@ query, synchronous or through the batcher, for adaptive re-indexing.
 The stats (``ServeStats``/``BucketStats``) are views over the metrics
 registry of the server's ``telemetry`` (DESIGN.md §12), and head-sampled
 requests leave span trees in its trace ring: ``SYNC_STAGES`` for
-``query``/``query_paths``, ``ASYNC_STAGES`` through the batcher.
+``query``/``query_paths``, ``ASYNC_STAGES`` through the batcher.  A
+sampled sync request also leaves child spans under ``dispatch``:
+``batch.assemble``, the engine's ``engine.upload``, ``engine.launch``,
+``engine.readback`` and ``rescue``, and ``batch.scatter``.
 
 ``LMServer`` is the greedy decode loop of the LM port
 (``repro_torch.models``), counted in the same ``ServeStats``.
@@ -276,10 +279,11 @@ class PathServer:
         Returns a list of [N]-arrays (1 for distances, 5 for argmin).  The
         engine is pinned for the whole request, so routing and every batch
         resolve against one artifact generation.  A sampled ``trace``
-        gets the ``route`` and ``dispatch`` stages.
+        gets the ``route`` and ``dispatch`` stages, and is the thread's
+        current trace while they run, so the batches and the engine's
+        device calls leave child spans under ``dispatch``.
         """
         n = len(s)
-        bs = self.batch_size
         b0 = self.stats.batches
         with self.engine.pin() as eng:
             gen0 = eng.generation
@@ -287,37 +291,13 @@ class PathServer:
                 # a new artifact: per-bucket rows describe the old routing
                 self.stats.swaps += max(0, gen0 - self.stats.generation)
                 self.stats.per_bucket = {}
-            pad = eng.static_shapes
             t_route = time.perf_counter()
-            buckets = eng.buckets_of(s, t) if n else np.zeros(0, np.int32)
+            with obs.stage_scope(trace, "route", annotate=True):
+                buckets = eng.buckets_of(s, t) if n else \
+                    np.zeros(0, np.int32)
             t_batches = time.perf_counter()
-            outs = empty_results(n, want_argmin)
-            for k in np.unique(buckets):
-                idxs = np.nonzero(buckets == k)[0]
-                bstats = self._bucket_stats(int(k), eng)
-                tb0 = time.perf_counter()
-                for lo in range(0, len(idxs), bs):
-                    sel = idxs[lo:lo + bs]
-                    # device engines get fixed [bs, 2] shapes; the host
-                    # oracle takes the ragged tail
-                    rows = bs if pad else len(sel)
-                    sb = np.zeros((rows, 2), np.float32)
-                    tb = np.zeros((rows, 2), np.float32)
-                    sb[:len(sel)] = s[sel]
-                    tb[:len(sel)] = t[sel]
-                    if self._replicas is not None:
-                        res = self._split_batch(sb, tb, int(k), want_argmin)
-                    elif want_argmin:
-                        res = eng.batch_argmin(sb, tb, bucket=int(k))
-                    else:
-                        res = (eng.batch(sb, tb, bucket=int(k)),)
-                    for o, r in zip(outs, res):
-                        o[sel] = r[:len(sel)]
-                    bstats.batches += 1
-                    bstats.slots += rows
-                    self.stats.batches += 1
-                bstats.queries += len(idxs)
-                bstats.seconds += time.perf_counter() - tb0
+            with obs.stage_scope(trace, "dispatch"):
+                outs = self._batches(eng, s, t, buckets, want_argmin)
             if trace is not None:
                 trace.stage("route", t_batches - t_route)
                 trace.stage("dispatch", time.perf_counter() - t_batches)
@@ -331,6 +311,49 @@ class PathServer:
         self.stats.generation = gen0
         if self._recorder is not None and n:
             self._recorder.record(s, t)
+        return outs
+
+    def _batches(self, eng, s, t, buckets, want_argmin: bool) -> list:
+        """Each bucket's rows in fixed-shape batches through ``eng``, the
+        answers written back in request order.  Child spans of a sampled
+        request: ``batch.assemble`` (rows selected and padded) and
+        ``batch.scatter`` (answers and bucket counters) around the
+        engine's calls."""
+        bs = self.batch_size
+        pad = eng.static_shapes
+        with obs.span("batch.assemble", annotate=True):
+            outs = empty_results(len(s), want_argmin)
+            keys = np.unique(buckets)
+        for k in keys:
+            with obs.span("batch.assemble", annotate=True):
+                idxs = np.nonzero(buckets == k)[0]
+                bstats = self._bucket_stats(int(k), eng)
+            tb0 = time.perf_counter()
+            for lo in range(0, len(idxs), bs):
+                with obs.span("batch.assemble", annotate=True):
+                    sel = idxs[lo:lo + bs]
+                    # device engines get fixed [bs, 2] shapes; the host
+                    # oracle takes the ragged tail
+                    rows = bs if pad else len(sel)
+                    sb = np.zeros((rows, 2), np.float32)
+                    tb = np.zeros((rows, 2), np.float32)
+                    sb[:len(sel)] = s[sel]
+                    tb[:len(sel)] = t[sel]
+                if self._replicas is not None:
+                    res = self._split_batch(sb, tb, int(k), want_argmin)
+                elif want_argmin:
+                    res = eng.batch_argmin(sb, tb, bucket=int(k))
+                else:
+                    res = (eng.batch(sb, tb, bucket=int(k)),)
+                with obs.span("batch.scatter", annotate=True):
+                    for o, r in zip(outs, res):
+                        o[sel] = r[:len(sel)]
+                    bstats.batches += 1
+                    bstats.slots += rows
+                    self.stats.batches += 1
+            with obs.span("batch.scatter", annotate=True):
+                bstats.queries += len(idxs)
+                bstats.seconds += time.perf_counter() - tb0
         return outs
 
     def _split_batch(self, s, t, bucket: int, want_argmin: bool) -> tuple:
@@ -413,15 +436,17 @@ class PathServer:
                                                      trace=trace)
         t_unwind = time.perf_counter()
         paths = []
-        for i in range(len(s)):
-            if covis[i]:
-                paths.append([s[i].astype(np.float64), t[i].astype(np.float64)])
-            elif not np.isfinite(d[i]):
-                paths.append([])
-            else:
-                paths.append(unwind_path(host_index, s[i], t[i],
-                                         int(via_s[i]), int(hub[i]),
-                                         int(via_t[i])))
+        with obs.stage_scope(trace, "unwind", annotate=True):
+            for i in range(len(s)):
+                if covis[i]:
+                    paths.append([s[i].astype(np.float64),
+                                  t[i].astype(np.float64)])
+                elif not np.isfinite(d[i]):
+                    paths.append([])
+                else:
+                    paths.append(unwind_path(host_index, s[i], t[i],
+                                             int(via_s[i]), int(hub[i]),
+                                             int(via_t[i])))
         t1 = time.perf_counter()
         if trace is not None:
             trace.stage("unwind", t1 - t_unwind)

@@ -41,7 +41,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core.grid import EHLIndex
 from repro_torch.core.packed import (LAYOUT_F32, TRACES, BucketedIndex,
-                                     PackedIndex, gather_masked_exact,
+                                     PackedIndex, device_endpoints,
+                                     gather_masked_exact,
                                      join_masked, pack_bucketed, query_batch,
                                      query_batch_argmin,
                                      query_batch_at_bucket, rescue_exact,
@@ -187,11 +188,13 @@ class _Staged:
 class DeviceEngine(QueryEngine):
     """Batched engine over a packed layout on its device.
 
-    Each argmin batch a quantized artifact rescues adds one to
-    ``rescue_batches_total{engine=}`` and its host milliseconds to
-    ``rescue_ms{engine=}`` in the process-wide registry (the span sees the
-    rescue inside ``dispatch``); ``rescue_rows``/``rescue_seconds`` count
-    the engine's own ambiguous rows and host seconds.
+    Each argmin batch a quantized artifact joins adds its slots (padding
+    included) to ``argmin_rows_total{engine=}`` in the process-wide
+    registry; each it rescues adds one to ``rescue_batches_total``, its
+    ambiguous rows to ``rescue_rows_total`` and its host milliseconds to
+    ``rescue_ms`` (same label).  A sampled request's trace gets child spans
+    ``engine.upload``, ``engine.launch``, ``engine.readback`` and
+    ``rescue`` for each synchronous call.
 
     On a CUDA artifact the split-phase path stages through a pool of
     pinned slots per batch shape (a slot is reused only once its results
@@ -213,8 +216,6 @@ class DeviceEngine(QueryEngine):
         self.index = index
         self.quantized = index.layout.quantized
         self.bucketed = isinstance(index, BucketedIndex)
-        self.rescue_rows = 0
-        self.rescue_seconds = 0.0
         if self.bucketed:
             # host-side routing table mirrors (see _route)
             self._np_mapper = index.mapper.cpu().numpy()
@@ -249,44 +250,64 @@ class DeviceEngine(QueryEngine):
         return np.maximum(self._route(s), self._route(t)).astype(np.int32)
 
     def _run(self, s, t, bucket: int, want_argmin: bool):
-        if self.bucketed:
-            return query_batch_at_bucket(self.index, s, t, bucket=bucket,
-                                         use_kernels=self.use_kernels,
-                                         want_argmin=want_argmin)
-        fn = query_batch_argmin if want_argmin else query_batch
-        return fn(self.index, s, t, use_kernels=self.use_kernels)
+        """Upload a batch's endpoints and enqueue its fold and join (child
+        spans ``engine.upload`` and ``engine.launch`` of a sampled
+        request); the answers stay on the device."""
+        with obs.span("engine.upload"):
+            s, t = device_endpoints(self.index.device, s, t)
+        with obs.span("engine.launch"):
+            if self.bucketed:
+                return query_batch_at_bucket(self.index, s, t, bucket=bucket,
+                                             use_kernels=self.use_kernels,
+                                             want_argmin=want_argmin)
+            fn = query_batch_argmin if want_argmin else query_batch
+            return fn(self.index, s, t, use_kernels=self.use_kernels)
 
     def batch(self, s, t, bucket: int = 0) -> np.ndarray:
-        # repolint: disable=hot-path-sync -- batch is the synchronous API; host results are its contract
-        return self._run(s, t, bucket, want_argmin=False).cpu().numpy()
+        d = self._run(s, t, bucket, want_argmin=False)
+        with obs.span("engine.readback"):
+            # repolint: disable=hot-path-sync -- batch is the synchronous API; host results are its contract
+            return d.cpu().numpy()
 
     def batch_argmin(self, s, t, bucket: int = 0):
         res = self._run(s, t, bucket, want_argmin=True)
         if not self.quantized:
-            # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
-            return tuple(r.cpu().numpy() for r in res)
+            with obs.span("engine.readback"):
+                # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
+                return tuple(r.cpu().numpy() for r in res)
         # quantized: 6-tuple — rescue ambiguous-margin rows against the
         # exact residual so argmin winners match the f32 engine bit for bit
         # (one flag read decides)
-        # repolint: disable=hot-path-sync -- documented rescue trigger: one flag word, the exactness contract pays this sync
-        amb = res[5].cpu().numpy()
+        with obs.span("engine.readback"):
+            # repolint: disable=hot-path-sync -- documented rescue trigger: one flag word, the exactness contract pays this sync
+            amb = res[5].cpu().numpy()
+        self._count_argmin(amb)
         if not amb.any():
-            # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
-            return tuple(r.cpu().numpy() for r in res[:5])
+            with obs.span("engine.readback"):
+                # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
+                return tuple(r.cpu().numpy() for r in res[:5])
         return self._rescue(res, amb, s, t, bucket)
 
+    def _count_argmin(self, amb: np.ndarray) -> None:
+        """A quantized argmin batch joined: its slots, padding included."""
+        obs.REGISTRY.counter("argmin_rows_total", engine=self.name).inc(
+            len(amb))
+
     def _rescue(self, res, amb: np.ndarray, s, t, bucket: int) -> tuple:
-        """Splice the exact answers of the ambiguous rows into ``res``."""
-        with obs.Stopwatch() as sw:
+        """Splice the exact answers of the ambiguous rows into ``res``
+        (child span ``rescue`` of a sampled request, ``rescue.splice``
+        below it, and ``rescue_exact``'s)."""
+        with obs.Stopwatch() as sw, obs.span("rescue"):
             # repolint: disable=hot-path-sync -- exact rescue is the sanctioned sync: rescue_exact copies the residual rows to the device (DESIGN.md §11)
             exact = rescue_exact(self.index, s, t, self.bucket_width(bucket),
                                  res[1], use_kernels=self.use_kernels)
-            out = splice_rescue((*res[:5], amb), exact)  # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync above: the host splice reads both answers
-        self.rescue_seconds += sw.seconds
-        self.rescue_rows += int(np.count_nonzero(amb))
-        obs.REGISTRY.counter("rescue_batches_total", engine=self.name).inc()
-        obs.REGISTRY.histogram("rescue_ms", engine=self.name).record(
-            sw.seconds * 1e3)
+            with obs.span("rescue.splice"):
+                out = splice_rescue((*res[:5], amb), exact)  # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync above: the host splice reads both answers
+        reg = obs.REGISTRY
+        reg.counter("rescue_rows_total", engine=self.name).inc(
+            int(np.count_nonzero(amb)))
+        reg.counter("rescue_batches_total", engine=self.name).inc()
+        reg.histogram("rescue_ms", engine=self.name).record(sw.seconds * 1e3)
         return out
 
     # -------------------------------------------- split-phase (async) path
@@ -363,6 +384,7 @@ class DeviceEngine(QueryEngine):
                 elif self.quantized:
                     # repolint: disable=hot-path-sync -- documented rescue trigger: one flag word, the exactness contract pays this sync
                     amb = res[5].cpu().numpy()
+                    self._count_argmin(amb)
                     if amb.any():
                         slot.busy = False
                         return Pending(self._rescue(res, amb, staged.s,

@@ -616,6 +616,37 @@ def test_profile_times_entries_off_the_hot_path(card, rooms_s):
     assert tr.complete(obs.SYNC_STAGES)
 
 
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_span_annotations_stay_off_the_device_trace(card, rooms_s, kind):
+    """A sampled ``query_paths`` on a ``CudaEngine`` under the profiler:
+    the port's span names are on the host timeline, and no CUDA-typed
+    event is a user annotation or carries a span's name, so annotations
+    never count as device busy time."""
+    from repro_torch import obs
+    from repro_torch.serving import CudaEngine, PathServer
+
+    idx, s, t = rooms_s
+    srv = PathServer(CudaEngine(_artifact(idx, kind, card)), batch_size=64,
+                     telemetry=obs.Telemetry(registry=obs.MetricsRegistry(),
+                                             sample_rate=1.0))
+    srv.warmup(paths=True)
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        srv.query_paths(s, t, host_index=idx)
+        torch.cuda.synchronize()
+    (tr,) = srv.telemetry.spans.traces("sync")
+    names = {sp.name for sp in tr.spans} | set(obs.SYNC_STAGES)
+    assert {"engine.launch", "engine.readback"} <= names
+    events = prof.events()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert device
+    assert not [e.key for e in device if e.is_user_annotation]
+    assert not {e.key for e in device} & names
+    host = {e.key for e in events if e.is_user_annotation}
+    assert {"route", "batch.assemble", "batch.scatter", "unwind"} <= host
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "f32-slab"])
 def test_warmup_leaves_nothing_cold_on_card(card, rooms_s, kind):
     """After ``warmup(paths=True)`` live traffic (every bucket, a ragged

@@ -334,6 +334,182 @@ def test_unsampled_sync_path_records_no_trace():
     assert srv.stats.queries == 5
 
 
+# ------------------------------------------- child spans below the stages
+
+#: the child spans that sit directly under ``dispatch``
+DISPATCH_CHILDREN = {"batch.assemble", "engine.upload", "engine.launch",
+                     "engine.readback", "rescue", "batch.scatter"}
+RESCUE_CHILDREN = {"rescue.residual", "rescue.upload", "rescue.join",
+                   "rescue.splice"}
+#: host-only spans and stages that a running profiler sees by name
+ANNOTATED = {"route", "batch.assemble", "batch.scatter", "unwind"}
+
+
+@pytest.fixture(scope="module")
+def port_bx_s(port_rooms_s):
+    from repro_torch.core.packed import slab_layout
+    return {lay: pack_bucketed(port_rooms_s, device="cpu",
+                               layout=slab_layout(lay))
+            for lay in ("f32", "bf16")}
+
+
+@pytest.fixture(scope="module")
+def port_queries_s():
+    scene = make_map("rooms-S", seed=1)
+    qs = uniform_queries(scene, build_visgraph(scene), 80, seed=3)
+    return qs.s.astype(np.float32), qs.t.astype(np.float32)
+
+
+def _serve(srv, entry, s, t, host_index):
+    if entry == "query_paths":
+        return srv.query_paths(s, t, host_index=host_index)
+    return srv.query(s, t)
+
+
+@pytest.mark.parametrize("layout", ["f32", "bf16"])
+@pytest.mark.parametrize("entry", ["query", "query_paths"])
+def test_sampled_request_leaves_child_spans(entry, layout, port_bx_s,
+                                            port_queries_s, port_rooms_s):
+    """Every sampled sync request leaves child spans with its ``rid``,
+    each inside its parent's interval (the trace's, for those under a
+    stage), under ``dispatch`` or under ``rescue``; the children of
+    ``dispatch`` sum to no more than it, the stages still telescope and the
+    tree nests the spans below the stages."""
+    from repro_torch.serving import TorchEngine
+
+    s, t = port_queries_s
+    srv, tel = _traced(TorchEngine(port_bx_s[layout]), batch_size=32)
+    _serve(srv, entry, s, t, port_rooms_s)
+    _serve(srv, entry, s[:20], t[:20], port_rooms_s)
+    traces = tel.spans.traces("sync")
+    assert len(traces) == 2 and traces[0].rid != traces[1].rid
+    for tr in traces:
+        assert tr.complete(obs.SYNC_STAGES) and _telescopes(tr)
+        assert obs.current_trace() is None
+        lo, hi = tr.t_start * 1e9 - 1e3, tr.t_end * 1e9 + 1e3
+        for sp in tr.spans:
+            assert sp.rid == tr.rid and sp.end_ns >= sp.start_ns
+            if sp.up is None:
+                assert sp.parent == "dispatch", sp.name
+                assert sp.name in DISPATCH_CHILDREN
+                assert lo <= sp.start_ns and sp.end_ns <= hi
+            else:
+                assert sp.parent == sp.up.name == "rescue"
+                assert sp.name in RESCUE_CHILDREN
+                assert sp.up.start_ns <= sp.start_ns
+                assert sp.end_ns <= sp.up.end_ns
+        names = {sp.name for sp in tr.spans}
+        assert {"batch.assemble", "engine.upload", "engine.launch",
+                "engine.readback", "batch.scatter"} <= names
+        under = sum(sp.seconds for sp in tr.spans if sp.up is None)
+        assert 0 < under <= tr.stages["dispatch"]
+        kids = {c["name"]: c["children"] for c in tr.tree()["children"]}
+        assert list(kids) == list(obs.SYNC_STAGES)
+        assert {c["name"] for c in kids["dispatch"]} == \
+            {sp.name for sp in tr.spans if sp.up is None}
+        assert all(c["rid"] == tr.rid for c in kids["dispatch"])
+        assert all(not kids[st] for st in obs.SYNC_STAGES
+                   if st != "dispatch")
+    rescued = [sp for tr in traces for sp in tr.spans if sp.name == "rescue"]
+    if layout == "bf16" and entry == "query_paths":
+        assert rescued
+        for r in rescued:
+            assert {c["name"] for c in _nested(traces, r)} == RESCUE_CHILDREN
+    else:
+        assert not rescued
+
+
+def _nested(traces, span):
+    return [sp.to_dict(0.0, []) for tr in traces for sp in tr.spans
+            if sp.up is span]
+
+
+def test_unsampled_request_records_no_span_and_opens_no_annotation(
+        monkeypatch, port_bx_s, port_queries_s, port_rooms_s):
+    """``Telemetry.off()``: under a running profiler a request leaves no
+    trace, no child span and opens no annotation (the opener is counted);
+    the same request sampled opens them."""
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving import TorchEngine
+
+    opened = []
+    real = obs_trace._open_annotation
+    monkeypatch.setattr(obs_trace, "_open_annotation",
+                        lambda name: opened.append(name) or real(name))
+    s, t = port_queries_s
+    eng = TorchEngine(port_bx_s["bf16"])
+    off = obs.Telemetry.off(registry=obs.MetricsRegistry())
+    quiet = PathServer(eng, batch_size=32, telemetry=off)
+    with torch.profiler.profile():
+        quiet.query_paths(s, t, host_index=port_rooms_s)
+        quiet.query(s, t)
+    assert off.spans.traces() == [] and opened == []
+    assert obs.current_trace() is None
+    loud, tel = _traced(eng, batch_size=32)
+    loud.query_paths(s, t, host_index=port_rooms_s)
+    assert opened == []             # sampled, but no profiler running
+    with torch.profiler.profile():
+        loud.query_paths(s, t, host_index=port_rooms_s)
+    assert ANNOTATED <= set(opened)
+    assert not {"engine.upload", "engine.launch", "engine.readback",
+                "rescue", "rescue.upload", "rescue.join"} & set(opened)
+
+
+def test_profiler_host_events_carry_the_span_names(port_bx_s,
+                                                   port_queries_s,
+                                                   port_rooms_s):
+    """Under a CPU ``torch.profiler`` the host events of a sampled
+    ``query_paths`` include ``batch.assemble``, ``batch.scatter``,
+    ``route`` and ``unwind``, each a user annotation."""
+    from repro_torch.serving import TorchEngine
+
+    s, t = port_queries_s
+    srv, _ = _traced(TorchEngine(port_bx_s["f32"]), batch_size=32)
+    with torch.profiler.profile() as prof:
+        srv.query_paths(s, t, host_index=port_rooms_s)
+    marks = {e.key for e in prof.events() if e.is_user_annotation}
+    assert ANNOTATED <= marks
+    assert not {"engine.upload", "engine.launch", "engine.readback"} & marks
+
+
+def test_quantized_argmin_counts_its_rows(port_bx_s, port_queries_s):
+    """A quantized argmin batch adds its slots (padding included) to
+    ``argmin_rows_total`` and its flagged rows to ``rescue_rows_total``;
+    an f32 engine's argmin batch adds to neither."""
+    from repro_torch.core.packed import query_batch_at_bucket
+    from repro_torch.serving import TorchEngine
+
+    s, t = port_queries_s
+    rows = 32
+
+    def totals(name):
+        return (obs.REGISTRY.total("argmin_rows_total", engine=name),
+                obs.REGISTRY.total("rescue_rows_total", engine=name))
+
+    eng = TorchEngine(port_bx_s["bf16"])
+    keys = eng.buckets_of(s, t)
+    flagged = []
+    for k in np.unique(keys):
+        sel = np.nonzero(keys == k)[0][:rows - 3]       # 3 padding slots
+        sb = np.zeros((rows, 2), np.float32)
+        tb = np.zeros((rows, 2), np.float32)
+        sb[:len(sel)], tb[:len(sel)] = s[sel], t[sel]
+        amb = query_batch_at_bucket(eng.index, torch.from_numpy(sb),
+                                    torch.from_numpy(tb), int(k),
+                                    want_argmin=True)[5].numpy()
+        before = totals(eng.name)
+        eng.batch_argmin(sb, tb, int(k))
+        after = totals(eng.name)
+        assert after[0] - before[0] == rows
+        assert after[1] - before[1] == int(np.count_nonzero(amb))
+        flagged.append(int(np.count_nonzero(amb)))
+    assert any(flagged)
+    f32 = TorchEngine(port_bx_s["f32"])
+    before = totals(f32.name)
+    f32.batch_argmin(sb, tb, int(k))
+    assert totals(f32.name) == before
+
+
 def test_async_spans_complete_and_telescope():
     """Every request sampled: each trace has the whole async taxonomy and
     its stages sum to its end-to-end time; the stage histograms saw every

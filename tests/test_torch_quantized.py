@@ -446,8 +446,8 @@ def test_quantized_engine_winners_equal_f32_engine(layout, engine_cls,
     assert eng.quantized
     srv = PathServer(eng, batch_size=64)
     srv.warmup(paths=True)
-    eng.rescue_rows = 0
     rescued0 = obs.REGISTRY.total("rescue_batches_total", engine=eng.name)
+    rows0 = obs.REGISTRY.total("rescue_rows_total", engine=eng.name)
     got = srv._dispatch(s, t, want_argmin=True)
     want = PathServer(engine_cls(port_bx["f32"]), batch_size=64)._dispatch(
         s, t, want_argmin=True)
@@ -455,7 +455,8 @@ def test_quantized_engine_winners_equal_f32_engine(layout, engine_cls,
         np.testing.assert_array_equal(a, b)
     rescued = obs.REGISTRY.total("rescue_batches_total",
                                  engine=eng.name) - rescued0
-    assert rescued > 0 and eng.rescue_rows >= rescued
+    rows = obs.REGISTRY.total("rescue_rows_total", engine=eng.name) - rows0
+    assert rescued > 0 and rows >= rescued
     other = (CudaEngine if engine_cls is TorchEngine else TorchEngine)
     twin = PathServer(other(port_bx[layout]), batch_size=64)._dispatch(
         s, t, want_argmin=True)
