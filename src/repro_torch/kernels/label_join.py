@@ -26,9 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.obs.profile import note_kernel
-
-from . import build
+from . import build, launches
 
 
 # the distance types the kernel loads, by the code its launcher takes
@@ -88,8 +86,8 @@ def label_join_rowmin(hub_s: torch.Tensor, vd_s: torch.Tensor,
                      _DTYPE_CODES[vd_s.dtype], stream)
     if err:
         raise RuntimeError(f"label_join_rowmin launch failed: cudaError {err}")
-    label_join_rowmin.launches += 1
-    note_kernel("label_join_rowmin", (B, L), vd_s.element_size())
+    launches.count(label_join_rowmin, "label_join_rowmin", (B, L),
+                   vd_s.element_size())
     return out
 
 

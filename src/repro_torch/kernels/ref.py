@@ -131,7 +131,9 @@ def label_join_rowmin_ref(hub_s: torch.Tensor, vd_s: torch.Tensor,
     vd_s = vd_s.to(torch.float32)
     vd_t = vd_t.to(torch.float32)
     eq = hub_s[:, :, None] == hub_t[:, None, :]           # [B, L, L]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=vd_t.device)
+    # a fill kernel, not a copy from host memory: capturable in a CUDA graph
+    inf = torch.full((), float("inf"), dtype=torch.float32,
+                     device=vd_t.device)
     matchmin = torch.where(eq, vd_t[:, None, :], inf).amin(dim=-1)
     return vd_s + matchmin
 

@@ -23,9 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.obs.profile import note_kernel
-
-from . import build
+from . import build, launches
 
 
 def _check(name: str, x: torch.Tensor, device):
@@ -114,8 +112,7 @@ def segvis(p: torch.Tensor, q: torch.Tensor, ea: torch.Tensor,
     if n == 0:
         return out
     _launch(p, q, ea, eb, ec, out, *launch_shape(n))
-    segvis.launches += 1
-    note_kernel("segvis", (n, e))
+    launches.count(segvis, "segvis", (n, e))
     return out
 
 

@@ -16,9 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.obs.profile import note_kernel
-
-from . import build
+from . import build, launches
 from .segvis import _check as _check_points
 
 PLANES = ("ax", "ay", "bx", "by", "cx", "cy")
@@ -80,8 +78,7 @@ def segvis_tiles(p: torch.Tensor, q: torch.Tensor,
                      stream)
     if err:
         raise RuntimeError(f"segvis_tiles launch failed: cudaError {err}")
-    segvis_tiles.launches += 1
-    note_kernel("segvis_tiles", (n, s))
+    launches.count(segvis_tiles, "segvis_tiles", (n, s))
     return out == 0
 
 

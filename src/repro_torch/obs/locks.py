@@ -19,7 +19,9 @@ import threading
 LOCK_RANKS: dict[str, int] = {
     "indexing.adapt": 10,       # IndexManager._adapt_lock (one rebuild)
     "batcher.queue": 20,        # CoalescingBatcher queue/condition
-    "engine.swap": 30,          # SwappableEngine pin/swap pointer flip
+    "engine.swap": 30,          # SwappableEngine pin/swap pointer flip;
+    #                             DeviceEngine CUDA graphs (copy-in, replay,
+    #                             clone): engine locks, nested under none
     "batcher.ticket": 40,       # Ticket result scatter
     "workload.recorder": 50,    # WorkloadRecorder histogram
     "obs.profile": 55,          # CompileCapture records and event queue

@@ -22,11 +22,16 @@ capture or not.  Per entry label the capture records, in its registry:
   on the dispatch path waits on them.  This is not the entry's kernel
   time: on a host-bound path the interval holds the stream's idle gaps
   while the host prepares the entry's next launch.  Kernel time comes
-  from a ``torch.profiler`` trace.
+  from a ``torch.profiler`` trace.  A call made while a CUDA graph is
+  captured is not timed, and a replayed graph calls no entry: where the
+  serving engine replays graphs (``serving.query_engine``), only its
+  eager calls are timed.
 
 With a capture installed, the three kernel launch wrappers also add the
 analytic cost of each launch (:func:`kernel_cost`, from shapes alone) to
-``kernel_cost_ops_total{kernel=}`` and ``kernel_cost_bytes_total{kernel=}``.
+``kernel_cost_ops_total{kernel=}`` and ``kernel_cost_bytes_total{kernel=}``;
+each replay of a CUDA graph adds the costs of the launches it captured
+(``kernels.launches``).
 
 The port has no jit, so the reference's ``jit_*`` series, ``aot_cost`` and
 ``normalize_cost`` (XLA ``cost_analysis``) have no counterpart here.  This
@@ -140,6 +145,14 @@ def _on_card(args) -> bool:
     return False
 
 
+def _capturing() -> bool:
+    """True while the current CUDA stream captures a graph: an event
+    recorded then would be a node of the graph, never a timing."""
+    import torch
+
+    return torch.cuda.is_current_stream_capturing()
+
+
 class CompileCapture:
     """Routes profiled entry calls and attributes cold calls and costs.
 
@@ -167,7 +180,8 @@ class CompileCapture:
     def call(self, entry: str, fn, args, kw):
         c = self.counter
         before = -1 if c is None else c.thread_count()
-        events = self._events() if self.timing and _on_card(args) else None
+        events = (self._events() if self.timing and _on_card(args)
+                  and not _capturing() else None)
         with Stopwatch() as sw:
             if events is not None:
                 events[0].record()

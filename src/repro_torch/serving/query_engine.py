@@ -41,13 +41,15 @@ import torch
 from repro_torch import obs
 from repro_torch.core.grid import EHLIndex
 from repro_torch.core.packed import (LAYOUT_F32, TRACES, BucketedIndex,
-                                     PackedIndex, device_endpoints,
-                                     gather_masked_exact,
+                                     PackedIndex, _layout_key,
+                                     device_endpoints, gather_masked_exact,
                                      join_masked, pack_bucketed, query_batch,
                                      query_batch_argmin,
                                      query_batch_at_bucket, rescue_exact,
                                      splice_rescue)
 from repro_torch.core.query import query as host_query
+from repro_torch.kernels import launches
+from repro_torch.obs.locks import make_lock
 
 #: pinned staging slots the warmup allocates per batch shape: the batcher's
 #: default pipeline depth (2) plus one
@@ -175,6 +177,18 @@ class _Slot:
         self.busy = False                   # staged, results not yet read
 
 
+class _Graph:
+    """One batch shape's fold and join captured as a CUDA graph: the static
+    endpoints it reads, its static outputs and the kernel launches it
+    replays (``kernels.launches``)."""
+
+    def __init__(self, s, t, graph, outs, launched):
+        self.s, self.t = s, t
+        self.graph = graph
+        self.outs = outs
+        self.launched = launched
+
+
 class _Staged:
     """A batch staged on the card: its slot, the host endpoints (the
     rescue reads them) and the device endpoints the copies fill."""
@@ -195,6 +209,21 @@ class DeviceEngine(QueryEngine):
     ``rescue_ms`` (same label).  A sampled request's trace gets child spans
     ``engine.upload``, ``engine.launch``, ``engine.readback`` and
     ``rescue`` for each synchronous call.
+
+    Where the artifact allows it (:meth:`_graphed`: on a CUDA device, at
+    fixed batch shapes, without an edge grid) each batch shape's fold and
+    join is captured once as a CUDA graph, and each call copies its
+    endpoints into the graph's static inputs, replays it and clones its
+    outputs, under one lock (rank ``engine.swap``), so that threads sharing
+    the engine never read each other's answers.  The same operations run
+    on the same shapes, so the answers equal the eager path's bit for bit.
+    All of an engine's graphs draw on one memory pool; each replay and its
+    clones run on the device's default stream before the next replay, so
+    any order of replays is safe.  Each call adds one to
+    ``graph_replays_total{engine=}`` or, where it ran eagerly, to
+    ``graph_eager_calls_total{engine=}``.  A capture is a cold event
+    (``TRACES`` key ``capture``), made by :meth:`warmup` for every shape
+    it runs, or by the first call of a shape it did not run.
 
     On a CUDA artifact the split-phase path stages through a pool of
     pinned slots per batch shape (a slot is reused only once its results
@@ -222,6 +251,13 @@ class DeviceEngine(QueryEngine):
             self._np_bucket = index.region_bucket.cpu().numpy()
         self._slots: dict[int, list[_Slot]] = {}    # batch rows -> pool
         self._copy_stream = None
+        # (bucket, rows, argmin) -> _Graph, all in one memory pool
+        self._graphs: dict[tuple, _Graph] = {}
+        self._graph_pool = self._capture_stream = None
+        # ranked with the swap lock (the port's lock names are the
+        # reference's): an engine lock that no thread takes while holding
+        # another engine lock, with only the obs leaves taken inside it
+        self._graph_lock = make_lock("engine.swap")
 
     @property
     def num_buckets(self) -> int:
@@ -252,16 +288,73 @@ class DeviceEngine(QueryEngine):
     def _run(self, s, t, bucket: int, want_argmin: bool):
         """Upload a batch's endpoints and enqueue its fold and join (child
         spans ``engine.upload`` and ``engine.launch`` of a sampled
-        request); the answers stay on the device."""
-        with obs.span("engine.upload"):
-            s, t = device_endpoints(self.index.device, s, t)
-        with obs.span("engine.launch"):
-            if self.bucketed:
-                return query_batch_at_bucket(self.index, s, t, bucket=bucket,
-                                             use_kernels=self.use_kernels,
-                                             want_argmin=want_argmin)
-            fn = query_batch_argmin if want_argmin else query_batch
-            return fn(self.index, s, t, use_kernels=self.use_kernels)
+        request), as a graph's replay where :meth:`_graphed`; the answers
+        stay on the device, in tensors of their own."""
+        if not self._graphed():
+            obs.REGISTRY.counter("graph_eager_calls_total",
+                                 engine=self.name).inc()
+            with obs.span("engine.upload"):
+                s, t = device_endpoints(self.index.device, s, t)
+            with obs.span("engine.launch"):
+                return self._enqueue(s, t, bucket, want_argmin)
+        with self._graph_lock:
+            key = (bucket if self.bucketed else 0, len(s), want_argmin)
+            g = self._graphs.get(key) or self._capture(key)
+            with obs.span("engine.upload"):
+                g.s.copy_(torch.as_tensor(s))
+                g.t.copy_(torch.as_tensor(t))
+            with obs.span("engine.launch"), torch.cuda.device(g.s.device):
+                g.graph.replay()
+                launches.replay(g.launched)
+                obs.REGISTRY.counter("graph_replays_total",
+                                     engine=self.name).inc()
+                outs = tuple(o.clone() for o in g.outs)
+        return outs if want_argmin else outs[0]
+
+    def _enqueue(self, s, t, bucket: int, want_argmin: bool):
+        """The fold and join of device endpoints, op by op."""
+        if self.bucketed:
+            return query_batch_at_bucket(self.index, s, t, bucket=bucket,
+                                         use_kernels=self.use_kernels,
+                                         want_argmin=want_argmin)
+        fn = query_batch_argmin if want_argmin else query_batch
+        return fn(self.index, s, t, use_kernels=self.use_kernels)
+
+    def _graphed(self) -> bool:
+        """Whether device calls replay CUDA graphs: on a CUDA artifact at
+        fixed batch shapes without an edge grid (the grid's chunked walk
+        is left eager)."""
+        return (self._on_card() and self.static_shapes
+                and self.index.grid is None)
+
+    def _capture(self, key: tuple) -> _Graph:
+        """Capture the fold and join of batch shape ``key`` (bucket, rows,
+        argmin) as a CUDA graph in the engine's pool.  An eager run at the
+        shape comes first, so that its kernels are built and loaded before
+        the capture.  Called under the graph lock."""
+        bucket, rows, want_argmin = key
+        dev = self.index.device
+        TRACES.see("capture", dev.type, rows,
+                   *_layout_key(self.index,
+                                bucket if self.bucketed else None),
+                   want_argmin)
+        s = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
+        t = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
+        self._enqueue(s, t, bucket, want_argmin)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev):
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(dev)
+            with launches.recording() as launched, torch.cuda.graph(
+                    graph, pool=self._graph_pool,
+                    stream=self._capture_stream,
+                    capture_error_mode="thread_local"):
+                out = self._enqueue(s, t, bucket, want_argmin)
+        g = _Graph(s, t, graph, tuple(out) if want_argmin else (out,),
+                   tuple(launched))
+        self._graphs[key] = g
+        return g
 
     def batch(self, s, t, bucket: int = 0) -> np.ndarray:
         d = self._run(s, t, bucket, want_argmin=False)
@@ -401,8 +494,9 @@ class DeviceEngine(QueryEngine):
 
     def warmup(self, batch_size: int, want_argmin: bool = False) -> None:
         """Run every bucket once at the serving batch shape, so the kernels
-        are built and loaded, and the device allocator has seen the serving
-        sizes, before live traffic.  On a quantized artifact the argmin
+        are built and loaded, the device allocator has seen the serving
+        sizes and the CUDA graphs of those shapes are captured, before live
+        traffic.  On a quantized artifact the argmin
         warmup also runs the rescue's exact gather and join once.  On the
         card the split-phase path runs too, through ``STAGING_SLOTS``
         batches in flight, so the first async batch pays no pinned-buffer

@@ -164,7 +164,11 @@ class ShardedQueryEngine(QueryEngine):
         return self.router.key_width(bucket)
 
     def _note_dispatch(self, staged, n: int) -> None:
-        """Traffic counters for one dispatched group (no blocking)."""
+        """Traffic counters for one dispatched group (no blocking); its
+        device calls ran eagerly (``graph_eager_calls_total``: the router's
+        per-shard folds, wire and join are captured as no CUDA graph)."""
+        obs.REGISTRY.counter("graph_eager_calls_total",
+                             engine=self.name).inc()
         st = self._stats[staged.i]
         st.batches += 1
         st.slots += n

@@ -511,6 +511,17 @@ def test_slab_cuda_engine_equals_torch_and_bucketed(card, rooms_s, layout):
         np.testing.assert_array_equal(x, z)
 
 
+def _eager_engine(art):
+    """A CudaEngine that runs eagerly: fixed batch shapes off, so no call
+    replays a CUDA graph."""
+    from repro_torch.serving import CudaEngine
+
+    class EagerCudaEngine(CudaEngine):
+        static_shapes = False
+
+    return EagerCudaEngine(art)
+
+
 def _artifact(idx, kind: str, device):
     from repro_torch.core.packed import pack_index, slab_layout
 
@@ -553,46 +564,70 @@ def test_dispatch_staged_never_syncs(card, rooms_s, kind, argmin):
     synchronisation (PyTorch's sync debug mode raises on any), behind a
     server that samples every request and with the profile capture timing
     every entry by CUDA events, and the results equal the synchronous
-    call's."""
+    call's: as a CUDA graph's replay (which calls no entry, so queues no
+    timing) and on the eager path of the same engine class (fixed shapes
+    off), which times its entries."""
     from repro_torch import obs
     from repro_torch.serving import CudaEngine, PathServer
 
     idx, s, t = rooms_s
-    eng = CudaEngine(_artifact(idx, kind, card))
-    reg = obs.MetricsRegistry()
-    PathServer(eng, batch_size=64,
-               telemetry=obs.Telemetry(registry=reg, sample_rate=1.0))
-    eng.warmup(64, want_argmin=argmin)
+    art = _artifact(idx, kind, card)
     sb, tb = s[:64], t[:64]
-    bucket = int(eng.buckets_of(sb, tb).max())
-    with obs.profiled(registry=reg, timing=True) as cap:
-        staged = eng.stage(sb, tb, bucket)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            pending = eng.dispatch_staged(staged, bucket,
-                                          want_argmin=argmin)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        assert cap.records == []                # nothing cold after warmup
-    got = pending.wait()
-    assert cap.drain() > 0
-    want = eng.batch_argmin(sb, tb, bucket) if argmin \
-        else (eng.batch(sb, tb, bucket),)
-    for w, g in zip(want, got):
-        np.testing.assert_array_equal(w, g)
+    for eng in (CudaEngine(art), _eager_engine(art)):
+        reg = obs.MetricsRegistry()
+        PathServer(eng, batch_size=64,
+                   telemetry=obs.Telemetry(registry=reg, sample_rate=1.0))
+        eng.warmup(64, want_argmin=argmin)
+        bucket = int(eng.buckets_of(sb, tb).max())
+        replays = REGISTRY.total("graph_replays_total", engine=eng.name)
+        with obs.profiled(registry=reg, timing=True) as cap:
+            staged = eng.stage(sb, tb, bucket)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = eng.dispatch_staged(staged, bucket,
+                                              want_argmin=argmin)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert cap.records == []            # nothing cold after warmup
+        got = pending.wait()
+        replayed = REGISTRY.total("graph_replays_total",
+                                  engine=eng.name) - replays
+        if eng.static_shapes:
+            assert replayed == 1 and cap.drain() == 0
+        else:
+            assert replayed == 0 and cap.drain() > 0
+        want = eng.batch_argmin(sb, tb, bucket) if argmin \
+            else (eng.batch(sb, tb, bucket),)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(w, g)
 
 
 def test_profile_times_entries_off_the_hot_path(card, rooms_s):
     """With ``timing=True`` every entry call on the card queues a pair of
     CUDA events; ``entry_stream_ms`` appears only once ``drain`` resolves
     them, one sample per call, and the kernel launches add their analytic
-    costs (``kernel_cost_*_total``)."""
+    costs (``kernel_cost_*_total``).  The entries run on the eager path
+    of the engine class (fixed shapes off); a replayed CUDA graph calls
+    none, and adds the kernel costs of the launches it replays."""
     from repro_torch import obs
     from repro_torch.serving import CudaEngine, PathServer
 
     idx, s, t = rooms_s
+    art = _artifact(idx, "f32", card)
     reg = obs.MetricsRegistry()
-    srv = PathServer(CudaEngine(_artifact(idx, "f32", card)), batch_size=64,
+    srv = PathServer(CudaEngine(art), batch_size=64,
+                     telemetry=obs.Telemetry(registry=reg, sample_rate=1.0))
+    srv.warmup(paths=True)
+    with obs.profiled(registry=reg, timing=True) as cap:
+        srv.query(s, t)
+        assert cap.drain() == 0                         # replays time none
+    assert not reg.series("entry_stream_ms")
+    replayed = {dict(m.labels)["kernel"]: m.value
+                for m in reg.series("kernel_cost_ops_total")}
+    assert set(replayed) == {"segvis", "label_join_rowmin"}
+    assert all(v > 0 for v in replayed.values())
+    reg = obs.MetricsRegistry()
+    srv = PathServer(_eager_engine(art), batch_size=64,
                      telemetry=obs.Telemetry(registry=reg, sample_rate=1.0))
     srv.warmup(paths=True)
     with obs.profiled(registry=reg, timing=True) as cap:
@@ -721,11 +756,16 @@ def _kept_tensors(art):
     return out
 
 
+def _graph_tensors(eng):
+    """The static endpoints and outputs of an engine's CUDA graphs."""
+    return [x for g in eng._graphs.values() for x in (g.s, g.t, *g.outs)]
+
+
 def test_swap_frees_retired_artifact_on_card(card):
     """A swap with nothing pinned drops the retired artifact: after
     ``gc.collect()`` ``memory_allocated()`` has fallen, beside what the new
-    artifact holds, by at least the old one's unaliased bytes, and nothing
-    references its slabs."""
+    artifact and its engine's CUDA graphs hold, by at least the old one's
+    unaliased bytes, and nothing references its slabs."""
     import gc
     import weakref
 
@@ -743,7 +783,8 @@ def test_swap_frees_retired_artifact_on_card(card):
     gc.collect()
     m1 = torch.cuda.memory_allocated(card)
     new_alloc = sum(-(-x.untyped_storage().nbytes() // 512) * 512
-                    for x in _kept_tensors(mgr.engine.artifact))
+                    for x in _kept_tensors(mgr.engine.artifact)
+                    + _graph_tensors(mgr.engine.current))
     assert ref_slab() is None
     assert m0 + new_alloc - m1 >= unaliased, (m0, m1, new_alloc, unaliased)
     assert mgr.engine.drops == 1 and mgr.device_bytes() <= budget
