@@ -7,6 +7,9 @@ cell needs is found by name under the benchmark's folder:
   and metrics;
 * ``configs/<config>.json``: the map, the index (cell size, budget, slab
   layout), the serving batch and engine, the guarantee and its limits;
+  optionally the deployment's hot spots (``clusters``, which its cluster
+  traffic draws from) and a ``workload_aware`` block (the index merged
+  under the scores of a history drawn from those hot spots);
 * ``workloads/<cell>.json``: the traffic (``portbench.traffic``) and the
   entry the window drives;
 * ``metrics/<metric>.py``: one per-layer metric, a ``read(ctx)`` that
@@ -52,6 +55,11 @@ OPEN_WARMUP_S = 0.5
 PROFILE_S = 2.0
 #: seconds past the window's close that late answers are waited for
 LATE_S = 60.0
+#: the weight of a region's score in a workload-aware merge (the paper's
+#: Eq. 5 sets alpha = 0.2)
+ALPHA = 0.2
+#: the sources of the sampler that draws a workload-aware index's history
+SAMPLER = (Path(traffic.__file__), Path(__file__).with_name("scene.py"))
 
 
 @dataclasses.dataclass
@@ -86,6 +94,11 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     cfg_entry = next(c for c in bench["configs"]
                      if c["name"] == entry["config"])
     cfg = json.loads((root / cfg_entry["file"]).read_text())
+    if "clusters" in cfg:           # the hot spots are the deployment's
+        if "clusters" in wl:
+            raise ValueError(f"cell {name}: hot spots belong in its "
+                             "configuration, not in its workload file")
+        wl["clusters"] = cfg["clusters"]
     return Cell(name, entry["config"], cfg, wl,
                 [m for m in bench["end_to_end"] if _in_cell(m, name)],
                 [m for m in bench["per_layer"] if _in_cell(m, name)], data,
@@ -105,39 +118,99 @@ def load_metric(data: Path, name: str):
 
 
 # ------------------------------------------------------------------ set-up
-def host_index(cell: Cell, m: Map):
-    """The configuration's host ``EHLIndex``: loaded from the cache in the
-    benchmark's folder, or built and cached.  The key is what the host
-    index is made from (the map, the cell size, the budget) and every source
-    of ``repro_torch.core``, so a change to the builders builds anew and
-    configurations that differ only in how they serve share one build.
-    Returns (index, built)."""
+def _key(parts: list, sources: tuple = ()) -> str:
+    """Hash of ``parts``, every source of ``repro_torch.core`` and then
+    ``sources``, so that a change to the builders builds anew."""
     import repro_torch.core as core
-    from repro_torch.core.compression import compress_to_fraction
+
+    h = hashlib.sha256(json.dumps(parts, sort_keys=True).encode())
+    for src in sorted(Path(core.__file__).parent.glob("*.py")) + list(sources):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def index_key(cfg: dict) -> str:
+    """The cache key of a configuration's host index: what it is made from
+    (the map, the cell size, the budget and, where the configuration has
+    one, the ``workload_aware`` block with the hot spots its history is
+    drawn from), so configurations that differ only in how they serve
+    share one build.  With the block, the key also takes the sources of
+    the sampler that draws the history (:data:`SAMPLER`), so a change to
+    the sampler merges anew.  A configuration without the block hashes as
+    before the block existed."""
+    parts = [cfg["map"], cfg["cell_size"], cfg["budget"]]
+    if "workload_aware" not in cfg:
+        return _key(parts)
+    parts.append({"workload_aware": cfg["workload_aware"],
+                  "clusters": cfg["clusters"]})
+    return _key(parts, SAMPLER)
+
+
+def _load(path: Path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _dump(obj, path: Path) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+
+
+def base_index(cfg: dict, m: Map, cache: Path):
+    """The map's uncompressed ``EHLIndex`` (``build_ehl``), one per map and
+    cell size: a copy loaded from the cache, or built and cached (then the
+    caller may merge the built one itself: the cache holds the copy)."""
     from repro_torch.core.geometry import Scene
     from repro_torch.core.grid import build_ehl
     from repro_torch.core.visgraph import build_visgraph
 
-    cfg = cell.config
-    h = hashlib.sha256(json.dumps(
-        [cfg["map"], cfg["cell_size"], cfg["budget"]],
-        sort_keys=True).encode())
-    for src in sorted(Path(core.__file__).parent.glob("*.py")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    cache = cell.data / ".cache"
-    path = cache / f"ehl-{h.hexdigest()[:16]}.pkl"
+    path = cache / f"base-{_key([cfg['map'], cfg['cell_size']])}.pkl"
     if path.exists():
-        with open(path, "rb") as f:
-            return pickle.load(f), False
+        return _load(path)
     scene = Scene.build(m.polygons(), m.width, m.height)
     index = build_ehl(scene, cfg["cell_size"], graph=build_visgraph(scene))
-    compress_to_fraction(index, cfg["budget"])
-    cache.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    with open(tmp, "wb") as f:
-        pickle.dump(index, f, protocol=pickle.HIGHEST_PROTOCOL)
-    os.replace(tmp, path)
+    _dump(index, path)
+    return index
+
+
+def history_scores(cfg: dict, m: Map, index) -> np.ndarray:
+    """The port's workload-aware scores s(c) = 1 + w_c of the configuration's
+    history: ``history_pairs`` pairs that the benchmark's own sampler draws
+    from ``history_seed``, every one in the hot spots (the paper's history
+    is pure Cluster-k; its Mixed-y deviation is of the served traffic)."""
+    from repro_torch.core.workload import QuerySet, workload_scores
+
+    wa = cfg["workload_aware"]
+    spec = {"distribution": "cluster", "clusters": cfg["clusters"],
+            "adherence": 1.0}
+    s, t = traffic.endpoints(spec, m, wa["history_pairs"],
+                             traffic.rng(wa["history_seed"], traffic.HISTORY))
+    return workload_scores(index, QuerySet("history", s, t))
+
+
+def host_index(cell: Cell, m: Map):
+    """The configuration's host ``EHLIndex``: loaded from the cache in the
+    benchmark's folder, or merged from the map's uncompressed index
+    (:func:`base_index`) to the configuration's budget, under its history's
+    scores, with the paper's Eq. 5 weight :data:`ALPHA`, where it has a
+    ``workload_aware`` block, and cached.  Returns (index, built)."""
+    from repro_torch.core.compression import compress_to_fraction
+
+    cfg = cell.config
+    cache = cell.data / ".cache"
+    path = cache / f"ehl-{index_key(cfg)}.pkl"
+    if path.exists():
+        return _load(path), False
+    index = base_index(cfg, m, cache)
+    kw = {}
+    if "workload_aware" in cfg:
+        kw = {"cell_scores": history_scores(cfg, m, index), "alpha": ALPHA}
+    compress_to_fraction(index, cfg["budget"], **kw)
+    _dump(index, path)
     return index, True
 
 

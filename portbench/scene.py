@@ -66,6 +66,16 @@ class Map:
 CLEARANCE = 1e-3
 
 
+def near_obstacle(m: Map, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """[n] bool: point (x, y) lies within :data:`CLEARANCE` of an obstacle
+    (or inside one)."""
+    near = np.zeros(len(x), bool)
+    for x0, y0, x1, y1 in m.rects:
+        near |= ((x > x0 - CLEARANCE) & (x < x1 + CLEARANCE)
+                 & (y > y0 - CLEARANCE) & (y < y1 + CLEARANCE))
+    return near
+
+
 def free_points(m: Map, n: int, rng: np.random.Generator) -> np.ndarray:
     """[n, 2] float32 points drawn uniformly over free space, each at least
     :data:`CLEARANCE` from every obstacle."""
@@ -75,11 +85,7 @@ def free_points(m: Map, n: int, rng: np.random.Generator) -> np.ndarray:
         k = int(1.4 * (n - got)) + 64
         x = rng.uniform(0.0, m.width, k).astype(np.float32)
         y = rng.uniform(0.0, m.height, k).astype(np.float32)
-        inside = np.zeros(k, bool)
-        for x0, y0, x1, y1 in m.rects:
-            inside |= ((x > x0 - CLEARANCE) & (x < x1 + CLEARANCE)
-                       & (y > y0 - CLEARANCE) & (y < y1 + CLEARANCE))
-        keep = np.flatnonzero(~inside)[:n - got]
+        keep = np.flatnonzero(~near_obstacle(m, x, y))[:n - got]
         out[got:got + len(keep), 0] = x[keep]
         out[got:got + len(keep), 1] = y[keep]
         got += len(keep)
