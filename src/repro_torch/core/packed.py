@@ -1502,16 +1502,11 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def rescue_exact(bx, s, t, width: int, covis, use_kernels: bool = False):
-    """Re-answer a batch with exact distances (host residual -> device).
-
-    Full-batch recomputation at the quantized run's shapes; the caller
-    splices only the ambiguous rows.  ``covis`` is the quantized run's
-    co-visibility bit — pure geometry, identical in both layouts.  Returns
-    the exact 5-tuple.  A sampled request's trace gets the child spans
-    ``rescue.residual`` (the host rows), ``rescue.upload`` (their copies)
-    and ``rescue.join`` (the exact gather and join enqueued).
-    """
+def residual_rows(bx, s, t, width: int) -> tuple:
+    """The host half of a rescue: (s, t, ds, dt), the endpoints as float32
+    numpy and each side's [B, width] exact distance rows from the
+    :class:`ResidualTable` (child span ``rescue.residual`` of a sampled
+    request)."""
     res = bx.residual
     if res is None:
         raise ValueError("rescue_exact needs a quantized index with its "
@@ -1519,8 +1514,22 @@ def rescue_exact(bx, s, t, width: int, covis, use_kernels: bool = False):
     with obs.span("rescue.residual", annotate=True):
         s = _host(s).astype(np.float32)
         t = _host(t).astype(np.float32)
-        ds = res.gather_d(res.locate(s), width)
-        dt = res.gather_d(res.locate(t), width)
+        return (s, t, res.gather_d(res.locate(s), width),
+                res.gather_d(res.locate(t), width))
+
+
+def rescue_exact(bx, s, t, width: int, covis, use_kernels: bool = False):
+    """Re-answer a batch with exact distances (host residual -> device).
+
+    Full-batch recomputation at the quantized run's shapes; the caller
+    splices only the ambiguous rows.  ``covis`` is the quantized run's
+    co-visibility bit — pure geometry, identical in both layouts.  Returns
+    the exact 5-tuple.  A sampled request's trace gets the child spans
+    ``rescue.residual`` (the host rows, :func:`residual_rows`),
+    ``rescue.upload`` (their copies) and ``rescue.join`` (the exact gather
+    and join enqueued).
+    """
+    s, t, ds, dt = residual_rows(bx, s, t, width)
     dev = bx.device
 
     def fold(pts, d):

@@ -46,7 +46,7 @@ from repro_torch.core.packed import (LAYOUT_F32, TRACES, BucketedIndex,
                                      join_masked, pack_bucketed, query_batch,
                                      query_batch_argmin,
                                      query_batch_at_bucket, rescue_exact,
-                                     splice_rescue)
+                                     residual_rows, splice_rescue)
 from repro_torch.core.query import query as host_query
 from repro_torch.kernels import launches
 from repro_torch.obs.locks import make_lock
@@ -178,12 +178,13 @@ class _Slot:
 
 
 class _Graph:
-    """One batch shape's fold and join captured as a CUDA graph: the static
-    endpoints it reads, its static outputs and the kernel launches it
+    """One captured CUDA graph: the static inputs it reads (the endpoints
+    ``s`` and ``t`` first), its static outputs and the kernel launches it
     replays (``kernels.launches``)."""
 
-    def __init__(self, s, t, graph, outs, launched):
-        self.s, self.t = s, t
+    def __init__(self, inputs, graph, outs, launched):
+        self.inputs = inputs
+        self.s, self.t = inputs[:2]
         self.graph = graph
         self.outs = outs
         self.launched = launched
@@ -223,7 +224,11 @@ class DeviceEngine(QueryEngine):
     ``graph_replays_total{engine=}`` or, where it ran eagerly, to
     ``graph_eager_calls_total{engine=}``.  A capture is a cold event
     (``TRACES`` key ``capture``), made by :meth:`warmup` for every shape
-    it runs, or by the first call of a shape it did not run.
+    it runs, or by the first call of a shape it did not run.  The
+    exact-argmin rescue of a quantized artifact replays a graph of its own
+    per (bucket, rows), in the same pool and under the same lock
+    (:meth:`_rescue`); each such replay adds one to
+    ``rescue_graph_replays_total{engine=}`` and none to the counters above.
 
     On a CUDA artifact the split-phase path stages through a pool of
     pinned slots per batch shape (a slot is reused only once its results
@@ -253,6 +258,10 @@ class DeviceEngine(QueryEngine):
         self._copy_stream = None
         # (bucket, rows, argmin) -> _Graph, all in one memory pool
         self._graphs: dict[tuple, _Graph] = {}
+        # (bucket, rows, "rescue") -> the rescue's _Graph, in the same pool,
+        # and rows -> each side's flat buffer of exact rows their graphs read
+        self._rescues: dict[tuple, _Graph] = {}
+        self._exact_rows: dict[int, tuple] = {}
         self._graph_pool = self._capture_stream = None
         # ranked with the swap lock (the port's lock names are the
         # reference's): an engine lock that no thread takes while holding
@@ -329,9 +338,8 @@ class DeviceEngine(QueryEngine):
 
     def _capture(self, key: tuple) -> _Graph:
         """Capture the fold and join of batch shape ``key`` (bucket, rows,
-        argmin) as a CUDA graph in the engine's pool.  An eager run at the
-        shape comes first, so that its kernels are built and loaded before
-        the capture.  Called under the graph lock."""
+        argmin) as a CUDA graph in the engine's pool.  Called under the
+        graph lock."""
         bucket, rows, want_argmin = key
         dev = self.index.device
         TRACES.see("capture", dev.type, rows,
@@ -340,21 +348,72 @@ class DeviceEngine(QueryEngine):
                    want_argmin)
         s = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
         t = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
-        self._enqueue(s, t, bucket, want_argmin)
+        g = self._capture_graph(
+            (s, t), lambda s, t: self._enqueue(s, t, bucket, want_argmin))
+        self._graphs[key] = g
+        return g
+
+    def _capture_graph(self, inputs: tuple, fn) -> _Graph:
+        """``fn(*inputs)`` captured as a CUDA graph in the engine's pool, on
+        its capture stream.  An eager run at the shape comes first, so that
+        its kernels are built and loaded before the capture."""
+        fn(*inputs)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev):
+        with torch.cuda.device(self.index.device):
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-                self._capture_stream = torch.cuda.Stream(dev)
+                self._capture_stream = torch.cuda.Stream(self.index.device)
             with launches.recording() as launched, torch.cuda.graph(
                     graph, pool=self._graph_pool,
                     stream=self._capture_stream,
                     capture_error_mode="thread_local"):
-                out = self._enqueue(s, t, bucket, want_argmin)
-        g = _Graph(s, t, graph, tuple(out) if want_argmin else (out,),
-                   tuple(launched))
-        self._graphs[key] = g
+                out = fn(*inputs)
+        return _Graph(inputs, graph,
+                      out if isinstance(out, tuple) else (out,),
+                      tuple(launched))
+
+    def _rescue_graph(self, bucket: int, rows: int) -> _Graph:
+        """The rescue's graph of ``bucket`` at ``rows``, captured at its
+        first sight (a cold ``TRACES`` key ``capture``): both sides' exact
+        gather and their join (:meth:`_exact_join`).  Its static inputs are
+        s, t, the quantized run's covis and each side's exact rows, a
+        [rows, width] view of that side's flat buffer of rows times the
+        widest bucket's width, which every bucket's graph at ``rows``
+        shares.  Called under the graph lock."""
+        key = (bucket, rows, "rescue")
+        if key in self._rescues:
+            return self._rescues[key]
+        dev = self.index.device
+        width = self.bucket_width(bucket)
+        TRACES.see("capture", dev.type, rows,
+                   *_layout_key(self.index,
+                                bucket if self.bucketed else None),
+                   "rescue")
+        if rows not in self._exact_rows:
+            w_max = max(map(self.bucket_width, range(self.num_buckets)))
+            self._exact_rows[rows] = tuple(
+                torch.full((rows * w_max,), float("inf"),
+                           dtype=torch.float32, device=dev)
+                for _ in range(2))
+        ds, dt = (buf[:rows * width].view(rows, width)
+                  for buf in self._exact_rows[rows])
+        s = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
+        t = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
+        covis = torch.zeros(rows, dtype=torch.bool, device=dev)
+        g = self._capture_graph((s, t, covis, ds, dt), self._exact_join)
+        self._rescues[key] = g
         return g
+
+    def _exact_join(self, s, t, covis, ds, dt) -> tuple:
+        """The rescue's device half, as :func:`rescue_exact` enqueues it:
+        each side's gather with its [B, width] exact rows ``ds``/``dt``, and
+        their join on the quantized run's ``covis``."""
+        ms = gather_masked_exact(self.index, s, ds, ds.shape[1],
+                                 use_kernels=self.use_kernels)
+        mt = gather_masked_exact(self.index, t, dt, dt.shape[1],
+                                 use_kernels=self.use_kernels)
+        return join_masked(ms, mt, s, t, covis, use_kernels=self.use_kernels,
+                           want_argmin=True)
 
     def batch(self, s, t, bucket: int = 0) -> np.ndarray:
         d = self._run(s, t, bucket, want_argmin=False)
@@ -388,12 +447,41 @@ class DeviceEngine(QueryEngine):
 
     def _rescue(self, res, amb: np.ndarray, s, t, bucket: int) -> tuple:
         """Splice the exact answers of the ambiguous rows into ``res``
-        (child span ``rescue`` of a sampled request, ``rescue.splice``
-        below it, and ``rescue_exact``'s)."""
+        (child span ``rescue`` of a sampled request, with
+        ``rescue.residual``, ``rescue.upload``, ``rescue.join`` and
+        ``rescue.splice`` below it).
+
+        Where :meth:`_graphed` holds, the host residual rows are taken as
+        :func:`rescue_exact` takes them, and then, under the graph lock,
+        the endpoints, covis and exact rows are copied into the static
+        inputs of the bucket's rescue graph (:meth:`_rescue_graph`), which
+        is replayed, counted in ``rescue_graph_replays_total{engine=}``,
+        and its five outputs cloned.  The same operations run on the same
+        shapes, so the outputs equal the eager rescue's bit for bit.
+        Elsewhere :func:`rescue_exact` runs them op by op."""
+        width = self.bucket_width(bucket)
         with obs.Stopwatch() as sw, obs.span("rescue"):
-            # repolint: disable=hot-path-sync -- exact rescue is the sanctioned sync: rescue_exact copies the residual rows to the device (DESIGN.md §11)
-            exact = rescue_exact(self.index, s, t, self.bucket_width(bucket),
-                                 res[1], use_kernels=self.use_kernels)
+            if not self._graphed():
+                # repolint: disable=hot-path-sync -- exact rescue is the sanctioned sync: rescue_exact copies the residual rows to the device (DESIGN.md §11)
+                exact = rescue_exact(self.index, s, t, width, res[1],
+                                     use_kernels=self.use_kernels)
+            else:
+                # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync: the host residual reads the endpoints on the host
+                s, t, ds, dt = residual_rows(self.index, s, t, width)
+                with self._graph_lock:
+                    g = self._rescue_graph(bucket if self.bucketed else 0,
+                                           len(s))
+                    with obs.span("rescue.upload"):
+                        for x, v in zip(g.inputs, (s, t, res[1], ds, dt)):
+                            # repolint: disable=hot-path-sync -- the sanctioned rescue sync: endpoints and exact rows copy from pageable host memory, as rescue_exact's (DESIGN.md §11)
+                            x.copy_(torch.as_tensor(v))
+                    with obs.span("rescue.join"), \
+                            torch.cuda.device(g.s.device):
+                        g.graph.replay()
+                        launches.replay(g.launched)
+                        obs.REGISTRY.counter("rescue_graph_replays_total",
+                                             engine=self.name).inc()
+                        exact = tuple(o.clone() for o in g.outs)
             with obs.span("rescue.splice"):
                 out = splice_rescue((*res[:5], amb), exact)  # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync above: the host splice reads both answers
         reg = obs.REGISTRY
@@ -496,30 +584,29 @@ class DeviceEngine(QueryEngine):
         """Run every bucket once at the serving batch shape, so the kernels
         are built and loaded, the device allocator has seen the serving
         sizes and the CUDA graphs of those shapes are captured, before live
-        traffic.  On a quantized artifact the argmin
-        warmup also runs the rescue's exact gather and join once.  On the
-        card the split-phase path runs too, through ``STAGING_SLOTS``
-        batches in flight, so the first async batch pays no pinned-buffer
-        or stream setup."""
+        traffic.  On a quantized artifact the argmin warmup also captures
+        each bucket's rescue graph where :meth:`_graphed` holds (its eager
+        run first), and elsewhere runs the rescue's exact gather and join
+        once.  On the card the split-phase path runs too, through
+        ``STAGING_SLOTS`` batches in flight, so the first async batch pays
+        no pinned-buffer or stream setup."""
         z = np.zeros((batch_size, 2), np.float32)
         dev = self.index.device
         for b in range(self.num_buckets):
             self.batch(z, z, b)
             if want_argmin:
                 self.batch_argmin(z, z, b)
-                if self.quantized:
-                    W = self.bucket_width(b)
+                if self.quantized and self._graphed():
+                    with self._graph_lock:
+                        self._rescue_graph(b, batch_size)
+                elif self.quantized:
                     zt = torch.zeros((batch_size, 2), dtype=torch.float32,
                                      device=dev)
-                    d0 = torch.full((batch_size, W), float("inf"),
-                                    dtype=torch.float32, device=dev)
-                    ms = gather_masked_exact(self.index, zt, d0, W,
-                                             use_kernels=self.use_kernels)
-                    join_masked(ms, ms, zt, zt,
-                                torch.zeros(batch_size, dtype=torch.bool,
-                                            device=dev),
-                                use_kernels=self.use_kernels,
-                                want_argmin=True)
+                    d0 = torch.full((batch_size, self.bucket_width(b)),
+                                    float("inf"), dtype=torch.float32,
+                                    device=dev)
+                    self._exact_join(zt, zt, torch.zeros(
+                        batch_size, dtype=torch.bool, device=dev), d0, d0)
             if self._on_card():
                 for argmin in (False, True) if want_argmin else (False,):
                     pending = [self.dispatch_staged(self.stage(z, z, b), b,
