@@ -183,13 +183,10 @@ class ResidualTable:
         self.cell_size = float(cell_size)
 
     def locate(self, pts: np.ndarray) -> np.ndarray:
-        """[B] region ids — the same float32 floor-divide as
-        :func:`locate_regions`, so host rows match device gathers exactly."""
-        p = np.asarray(pts, np.float32)
-        cs = np.float32(self.cell_size)
-        ix = np.clip((p[:, 0] / cs).astype(np.int32), 0, self.nx - 1)
-        iy = np.clip((p[:, 1] / cs).astype(np.int32), 0, self.ny - 1)
-        return self.mapper[iy * self.nx + ix]
+        """[B] region ids of the cells :func:`locate_cells` finds, so host
+        rows match device gathers exactly."""
+        return self.mapper[locate_cells(pts, self.cell_size, self.nx,
+                                        self.ny)]
 
     def gather_d(self, regions: np.ndarray, width: int) -> np.ndarray:
         """[B, width] exact f32 distance rows, inf-padded — the host mirror
@@ -1084,13 +1081,25 @@ def locate_regions(idx, pts: torch.Tensor) -> torch.Tensor:
     by a Python float (a CPU scalar), a CUDA tensor is multiplied by the
     scalar's float32 reciprocal instead, which at a cell size that is not a
     power of two puts points one ulp below a cell boundary in the next
-    cell; the host mirrors (``DeviceEngine._route``,
-    :meth:`ResidualTable.locate`) divide, and must agree bit for bit.
+    cell; the host mirror (:func:`locate_cells`) divides, and must agree
+    bit for bit.
     """
     cs = _scalar(idx.cell_size, torch.float32, pts.device)
     ix = torch.clamp((pts[:, 0] / cs).to(torch.int32), 0, idx.nx - 1)
     iy = torch.clamp((pts[:, 1] / cs).to(torch.int32), 0, idx.ny - 1)
     return idx.mapper[(iy * idx.nx + ix).long()]
+
+
+def locate_cells(pts, cell_size: float, nx: int, ny: int) -> np.ndarray:
+    """[B] flat cell ids ``iy * nx + ix`` of host points: the float32
+    floor-divide of :func:`locate_regions`, on the host, bit for bit.  The
+    host routing (``DeviceEngine._route``, ``ShardRouter._cells``) and
+    :meth:`ResidualTable.locate` all locate with it."""
+    p = np.asarray(pts, np.float32)  # repolint: disable=hot-path-sync -- host routing math on host inputs, no device value involved
+    cs = np.float32(cell_size)
+    ix = np.clip((p[:, 0] / cs).astype(np.int32), 0, nx - 1)
+    iy = np.clip((p[:, 1] / cs).astype(np.int32), 0, ny - 1)
+    return iy * nx + ix
 
 
 def _segvis(p, q, bx, use_kernels: bool) -> torch.Tensor:
@@ -1309,13 +1318,15 @@ def device_endpoints(dev: torch.device, s, t) -> tuple:
             torch.as_tensor(t, dtype=torch.float32, device=dev))
 
 
-def query_batch_at_bucket(bx: BucketedIndex, s: torch.Tensor, t: torch.Tensor,
-                          bucket: int, use_kernels: bool = False,
+def query_batch_at_bucket(bx, s: torch.Tensor, t: torch.Tensor,
+                          bucket: int | None, use_kernels: bool = False,
                           want_argmin: bool = False):
     """Eq. 1-3 over one dispatch bucket.
 
     Every query's endpoint regions must live in buckets <= ``bucket`` (i.e.
-    ``bucket == max(endpoint buckets)`` after routing).  Returns d [B]
+    ``bucket == max(endpoint buckets)`` after routing); ``bucket=None`` on
+    a :class:`PackedIndex` runs its single slab, as :func:`query_batch` and
+    :func:`query_batch_argmin` do.  Returns d [B]
     float32, or with ``want_argmin`` (d, covis, via_s, hub, via_t), and on a
     quantized layout a sixth ``amb`` [B] bool: the rows to rescue
     (:func:`rescue_exact`).
@@ -1518,6 +1529,19 @@ def residual_rows(bx, s, t, width: int) -> tuple:
                 res.gather_d(res.locate(t), width))
 
 
+def exact_join(idx, s: torch.Tensor, t: torch.Tensor, covis: torch.Tensor,
+               ds: torch.Tensor, dt: torch.Tensor,
+               use_kernels: bool = False) -> tuple:
+    """The rescue's device half: each side's gather with its [B, width]
+    exact distance rows ``ds``/``dt`` (:func:`gather_masked_exact`), and
+    their join on the quantized run's co-visibility bit ``covis``.  Returns
+    the exact 5-tuple."""
+    ms = gather_masked_exact(idx, s, ds, ds.shape[1], use_kernels=use_kernels)
+    mt = gather_masked_exact(idx, t, dt, dt.shape[1], use_kernels=use_kernels)
+    return join_masked(ms, mt, s, t, covis, use_kernels=use_kernels,
+                       want_argmin=True)
+
+
 def rescue_exact(bx, s, t, width: int, covis, use_kernels: bool = False):
     """Re-answer a batch with exact distances (host residual -> device).
 
@@ -1526,27 +1550,14 @@ def rescue_exact(bx, s, t, width: int, covis, use_kernels: bool = False):
     co-visibility bit — pure geometry, identical in both layouts.  Returns
     the exact 5-tuple.  A sampled request's trace gets the child spans
     ``rescue.residual`` (the host rows, :func:`residual_rows`),
-    ``rescue.upload`` (their copies) and ``rescue.join`` (the exact gather
-    and join enqueued).
+    ``rescue.upload`` (their copies, both sides' rows before either
+    gather) and ``rescue.join`` (:func:`exact_join` enqueued).
     """
-    s, t, ds, dt = residual_rows(bx, s, t, width)
-    dev = bx.device
-
-    def fold(pts, d):
-        # one side's rows on the device only while its gather runs
-        with obs.span("rescue.upload"):
-            d = torch.from_numpy(d).to(dev)
-        with obs.span("rescue.join"):
-            return gather_masked_exact(bx, pts, d, width,
-                                       use_kernels=use_kernels)
-
+    rows = residual_rows(bx, s, t, width)
     with obs.span("rescue.upload"):
-        st, tt = torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
-    ms = fold(st, ds)
-    mt = fold(tt, dt)
+        s, t, ds, dt = (torch.from_numpy(a).to(bx.device) for a in rows)
     with obs.span("rescue.join"):
-        return join_masked(ms, mt, st, tt, covis, use_kernels=use_kernels,
-                           want_argmin=True)
+        return exact_join(bx, s, t, covis, ds, dt, use_kernels=use_kernels)
 
 
 def splice_rescue(quant6, exact5) -> tuple:

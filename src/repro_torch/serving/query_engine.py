@@ -41,12 +41,10 @@ import torch
 from repro_torch import obs
 from repro_torch.core.grid import EHLIndex
 from repro_torch.core.packed import (LAYOUT_F32, TRACES, BucketedIndex,
-                                     PackedIndex, _layout_key,
-                                     device_endpoints, gather_masked_exact,
-                                     join_masked, pack_bucketed, query_batch,
-                                     query_batch_argmin,
-                                     query_batch_at_bucket, rescue_exact,
-                                     residual_rows, splice_rescue)
+                                     PackedIndex, _layout_key, exact_join,
+                                     locate_cells, pack_bucketed,
+                                     query_batch_at_bucket, residual_rows,
+                                     splice_rescue)
 from repro_torch.core.query import query as host_query
 from repro_torch.kernels import launches
 from repro_torch.obs.locks import make_lock
@@ -200,6 +198,17 @@ class _Staged:
         self.s_dev, self.t_dev = s_dev, t_dev
 
 
+#: the kinds of device call :meth:`DeviceEngine._call` makes: for each, the
+#: span of its upload, the span of its run, the counter of its graph replays
+#: and the counter of its eager runs (None: not counted)
+_CALLS = {
+    "query": ("engine.upload", "engine.launch", "graph_replays_total",
+              "graph_eager_calls_total"),
+    "rescue": ("rescue.upload", "rescue.join", "rescue_graph_replays_total",
+               None),
+}
+
+
 class DeviceEngine(QueryEngine):
     """Batched engine over a packed layout on its device.
 
@@ -211,24 +220,23 @@ class DeviceEngine(QueryEngine):
     ``engine.upload``, ``engine.launch``, ``engine.readback`` and
     ``rescue`` for each synchronous call.
 
-    Where the artifact allows it (:meth:`_graphed`: on a CUDA device, at
-    fixed batch shapes, without an edge grid) each batch shape's fold and
-    join is captured once as a CUDA graph, and each call copies its
-    endpoints into the graph's static inputs, replays it and clones its
-    outputs, under one lock (rank ``engine.swap``), so that threads sharing
-    the engine never read each other's answers.  The same operations run
-    on the same shapes, so the answers equal the eager path's bit for bit.
-    All of an engine's graphs draw on one memory pool; each replay and its
-    clones run on the device's default stream before the next replay, so
-    any order of replays is safe.  Each call adds one to
-    ``graph_replays_total{engine=}`` or, where it ran eagerly, to
-    ``graph_eager_calls_total{engine=}``.  A capture is a cold event
-    (``TRACES`` key ``capture``), made by :meth:`warmup` for every shape
-    it runs, or by the first call of a shape it did not run.  The
-    exact-argmin rescue of a quantized artifact replays a graph of its own
-    per (bucket, rows), in the same pool and under the same lock
-    (:meth:`_rescue`); each such replay adds one to
-    ``rescue_graph_replays_total{engine=}`` and none to the counters above.
+    Both kinds of device call, a batch's fold and join and the exact-argmin
+    rescue's gather and join, go through one executor (:meth:`_call`).
+    Where :meth:`_graphed` holds (on a CUDA device, without an edge grid)
+    each call's shape is captured once as a CUDA graph, and each call
+    copies its inputs into the graph's static inputs, replays it and
+    clones its outputs, under one lock (rank ``engine.swap``), so that
+    threads sharing the engine never read each other's answers.  The same
+    operations run on the same shapes, so the answers equal the eager
+    path's bit for bit.  All of an engine's graphs draw on one memory pool;
+    each replay and its clones run on the device's default stream before
+    the next replay, so any order of replays is safe.  Each fold and join
+    adds one to ``graph_replays_total{engine=}`` or, where it ran eagerly,
+    to ``graph_eager_calls_total{engine=}``; each replayed rescue adds one
+    to ``rescue_graph_replays_total{engine=}`` and none to those.  A
+    capture is a cold event (``TRACES`` key ``capture``), made by
+    :meth:`warmup` for every shape it runs, or by the first call of a
+    shape it did not run.
 
     On a CUDA artifact the split-phase path stages through a pool of
     pinned slots per batch shape (a slot is reused only once its results
@@ -256,11 +264,10 @@ class DeviceEngine(QueryEngine):
             self._np_bucket = index.region_bucket.cpu().numpy()
         self._slots: dict[int, list[_Slot]] = {}    # batch rows -> pool
         self._copy_stream = None
-        # (bucket, rows, argmin) -> _Graph, all in one memory pool
+        # the key of a call (:meth:`_call`) -> its _Graph, all in one
+        # memory pool; and rows -> each side's flat buffer of exact rows
+        # the rescue graphs at ``rows`` read
         self._graphs: dict[tuple, _Graph] = {}
-        # (bucket, rows, "rescue") -> the rescue's _Graph, in the same pool,
-        # and rows -> each side's flat buffer of exact rows their graphs read
-        self._rescues: dict[tuple, _Graph] = {}
         self._exact_rows: dict[int, tuple] = {}
         self._graph_pool = self._capture_stream = None
         # ranked with the swap lock (the port's lock names are the
@@ -280,140 +287,134 @@ class DeviceEngine(QueryEngine):
         return self.index.device_bytes()
 
     def _route(self, pts) -> np.ndarray:
-        """Host-numpy mirror of ``locate_regions`` -> bucket (the same
-        float32 division, so cell ids agree with the device gathers bit for
-        bit)."""
-        p = np.asarray(pts, np.float32)
-        cs = np.float32(self.index.cell_size)
-        ix = np.clip((p[:, 0] / cs).astype(np.int32), 0, self.index.nx - 1)
-        iy = np.clip((p[:, 1] / cs).astype(np.int32), 0, self.index.ny - 1)
-        return self._np_bucket[self._np_mapper[iy * self.index.nx + ix]]
+        """Host routing: the bucket of each point's region, at the cells
+        :func:`locate_cells` finds (``locate_regions``'s bits)."""
+        idx = self.index
+        return self._np_bucket[self._np_mapper[
+            locate_cells(pts, idx.cell_size, idx.nx, idx.ny)]]
 
     def buckets_of(self, s, t) -> np.ndarray:
         if not self.bucketed:
             return np.zeros(len(s), dtype=np.int32)
         return np.maximum(self._route(s), self._route(t)).astype(np.int32)
 
-    def _run(self, s, t, bucket: int, want_argmin: bool):
-        """Upload a batch's endpoints and enqueue its fold and join (child
-        spans ``engine.upload`` and ``engine.launch`` of a sampled
-        request), as a graph's replay where :meth:`_graphed`; the answers
-        stay on the device, in tensors of their own."""
-        if not self._graphed():
-            obs.REGISTRY.counter("graph_eager_calls_total",
-                                 engine=self.name).inc()
-            with obs.span("engine.upload"):
-                s, t = device_endpoints(self.index.device, s, t)
-            with obs.span("engine.launch"):
-                return self._enqueue(s, t, bucket, want_argmin)
-        with self._graph_lock:
-            key = (bucket if self.bucketed else 0, len(s), want_argmin)
-            g = self._graphs.get(key) or self._capture(key)
-            with obs.span("engine.upload"):
-                g.s.copy_(torch.as_tensor(s))
-                g.t.copy_(torch.as_tensor(t))
-            with obs.span("engine.launch"), torch.cuda.device(g.s.device):
-                g.graph.replay()
-                launches.replay(g.launched)
-                obs.REGISTRY.counter("graph_replays_total",
-                                     engine=self.name).inc()
-                outs = tuple(o.clone() for o in g.outs)
-        return outs if want_argmin else outs[0]
-
-    def _enqueue(self, s, t, bucket: int, want_argmin: bool):
-        """The fold and join of device endpoints, op by op."""
-        if self.bucketed:
-            return query_batch_at_bucket(self.index, s, t, bucket=bucket,
-                                         use_kernels=self.use_kernels,
-                                         want_argmin=want_argmin)
-        fn = query_batch_argmin if want_argmin else query_batch
-        return fn(self.index, s, t, use_kernels=self.use_kernels)
+    def _at(self, bucket: int) -> int | None:
+        """The artifact's bucket for a call dispatched to ``bucket``: None
+        on the single slab, as its entries and ``TRACES`` keys name it."""
+        return bucket if self.bucketed else None
 
     def _graphed(self) -> bool:
-        """Whether device calls replay CUDA graphs: on a CUDA artifact at
-        fixed batch shapes without an edge grid (the grid's chunked walk
-        is left eager)."""
-        return (self._on_card() and self.static_shapes
-                and self.index.grid is None)
+        """Whether device calls replay CUDA graphs: on a CUDA device
+        without an edge grid (the grid's chunked walk is left eager)."""
+        return self._on_card() and self.index.grid is None
 
-    def _capture(self, key: tuple) -> _Graph:
-        """Capture the fold and join of batch shape ``key`` (bucket, rows,
-        argmin) as a CUDA graph in the engine's pool.  Called under the
-        graph lock."""
-        bucket, rows, want_argmin = key
+    def _call(self, kind: str, key: tuple, values: tuple, fn) -> tuple:
+        """Run ``fn(*values)`` on the device as the call ``key`` (artifact
+        bucket, rows, argmin or ``"rescue"``) of ``kind``, with the spans
+        and counters :data:`_CALLS` names for it; returns its outputs, on
+        the device, in tensors of their own.
+
+        Where :meth:`_graphed`, under the graph lock, the graph of ``key``
+        (captured at its first sight, :meth:`_capture`) gets ``values``
+        copied into its static inputs, is replayed, and its outputs are
+        cloned.  Elsewhere ``values`` go to the device and ``fn`` runs op
+        by op."""
+        upload, run, replays, eager = _CALLS[kind]
+        if not self._graphed():
+            if eager is not None:
+                obs.REGISTRY.counter(eager, engine=self.name).inc()
+            with obs.span(upload):
+                dev = self.index.device
+                # repolint: disable=hot-path-sync -- an eager call's host values copy from pageable memory: the synchronous API's endpoints, and the rescue's rows (the sanctioned rescue sync, DESIGN.md §11); a staged batch's endpoints are on the device already
+                values = [torch.as_tensor(v, device=dev) for v in values]
+            with obs.span(run):
+                out = fn(*values)
+            return out if isinstance(out, tuple) else (out,)
+        with self._graph_lock:
+            g = self._graphs.get(key) or self._capture(kind, key, fn)
+            with obs.span(upload):
+                for x, v in zip(g.inputs, values):
+                    # repolint: disable=hot-path-sync -- the sanctioned rescue sync: its endpoints and exact rows copy from pageable host memory (DESIGN.md §11); a staged batch's endpoints copy device to device
+                    x.copy_(torch.as_tensor(v))
+            with obs.span(run), torch.cuda.device(g.s.device):
+                g.graph.replay()
+                launches.replay(g.launched)
+                obs.REGISTRY.counter(replays, engine=self.name).inc()
+                return tuple(o.clone() for o in g.outs)
+
+    def _capture(self, kind: str, key: tuple, fn) -> _Graph:
+        """Capture the call ``key`` of ``kind`` on its static inputs
+        (:meth:`_static_inputs`) as a CUDA graph in the engine's pool, on
+        its capture stream, and keep it.  An eager run at the shape comes
+        first, so that its kernels are built and loaded before the
+        capture.  Called under the graph lock."""
+        at, rows, what = key
         dev = self.index.device
-        TRACES.see("capture", dev.type, rows,
-                   *_layout_key(self.index,
-                                bucket if self.bucketed else None),
-                   want_argmin)
-        s = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
-        t = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
-        g = self._capture_graph(
-            (s, t), lambda s, t: self._enqueue(s, t, bucket, want_argmin))
-        self._graphs[key] = g
-        return g
-
-    def _capture_graph(self, inputs: tuple, fn) -> _Graph:
-        """``fn(*inputs)`` captured as a CUDA graph in the engine's pool, on
-        its capture stream.  An eager run at the shape comes first, so that
-        its kernels are built and loaded before the capture."""
+        TRACES.see("capture", dev.type, rows, *_layout_key(self.index, at),
+                   what)
+        inputs = self._static_inputs(kind, key)
         fn(*inputs)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.index.device):
+        with torch.cuda.device(dev):
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-                self._capture_stream = torch.cuda.Stream(self.index.device)
+                self._capture_stream = torch.cuda.Stream(dev)
             with launches.recording() as launched, torch.cuda.graph(
                     graph, pool=self._graph_pool,
                     stream=self._capture_stream,
                     capture_error_mode="thread_local"):
                 out = fn(*inputs)
-        return _Graph(inputs, graph,
-                      out if isinstance(out, tuple) else (out,),
-                      tuple(launched))
+        g = self._graphs[key] = _Graph(
+            inputs, graph, out if isinstance(out, tuple) else (out,),
+            tuple(launched))
+        return g
 
-    def _rescue_graph(self, bucket: int, rows: int) -> _Graph:
-        """The rescue's graph of ``bucket`` at ``rows``, captured at its
-        first sight (a cold ``TRACES`` key ``capture``): both sides' exact
-        gather and their join (:meth:`_exact_join`).  Its static inputs are
-        s, t, the quantized run's covis and each side's exact rows, a
-        [rows, width] view of that side's flat buffer of rows times the
-        widest bucket's width, which every bucket's graph at ``rows``
-        shares.  Called under the graph lock."""
-        key = (bucket, rows, "rescue")
-        if key in self._rescues:
-            return self._rescues[key]
+    def _static_inputs(self, kind: str, key: tuple) -> tuple:
+        """A graph's static inputs, zero at the shape of ``key``: the
+        endpoints s and t, and for the rescue its covis and each side's
+        exact rows, a [rows, width] view of that side's flat buffer of rows
+        times the widest bucket's width, which every bucket's rescue graph
+        at ``rows`` shares."""
+        at, rows, _ = key
         dev = self.index.device
-        width = self.bucket_width(bucket)
-        TRACES.see("capture", dev.type, rows,
-                   *_layout_key(self.index,
-                                bucket if self.bucketed else None),
-                   "rescue")
-        if rows not in self._exact_rows:
+        if kind == "rescue" and rows not in self._exact_rows:
             w_max = max(map(self.bucket_width, range(self.num_buckets)))
             self._exact_rows[rows] = tuple(
                 torch.full((rows * w_max,), float("inf"),
                            dtype=torch.float32, device=dev)
                 for _ in range(2))
+        s, t = (torch.zeros((rows, 2), dtype=torch.float32, device=dev)
+                for _ in range(2))
+        if kind == "query":
+            return s, t
+        width = self.bucket_width(at)
         ds, dt = (buf[:rows * width].view(rows, width)
                   for buf in self._exact_rows[rows])
-        s = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
-        t = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
-        covis = torch.zeros(rows, dtype=torch.bool, device=dev)
-        g = self._capture_graph((s, t, covis, ds, dt), self._exact_join)
-        self._rescues[key] = g
-        return g
+        return s, t, torch.zeros(rows, dtype=torch.bool, device=dev), ds, dt
 
-    def _exact_join(self, s, t, covis, ds, dt) -> tuple:
-        """The rescue's device half, as :func:`rescue_exact` enqueues it:
-        each side's gather with its [B, width] exact rows ``ds``/``dt``, and
-        their join on the quantized run's ``covis``."""
-        ms = gather_masked_exact(self.index, s, ds, ds.shape[1],
-                                 use_kernels=self.use_kernels)
-        mt = gather_masked_exact(self.index, t, dt, dt.shape[1],
-                                 use_kernels=self.use_kernels)
-        return join_masked(ms, mt, s, t, covis, use_kernels=self.use_kernels,
-                           want_argmin=True)
+    def _prime(self, kind: str, key: tuple, values: tuple, fn) -> None:
+        """Make the call ``key`` ready without making it: where
+        :meth:`_graphed`, capture its graph unless it exists (no replay);
+        elsewhere run it once on ``values``, so its kernels are built and
+        loaded."""
+        if not self._graphed():
+            self._call(kind, key, values, fn)
+            return
+        with self._graph_lock:
+            if key not in self._graphs:
+                self._capture(kind, key, fn)
+
+    def _run(self, s, t, bucket: int, want_argmin: bool):
+        """A batch's fold and join through :meth:`_call` (child spans
+        ``engine.upload`` and ``engine.launch`` of a sampled request); the
+        answers stay on the device."""
+        at = self._at(bucket)
+        outs = self._call("query", (at, len(s), want_argmin), (s, t),
+                          lambda s, t: query_batch_at_bucket(
+                              self.index, s, t, at,
+                              use_kernels=self.use_kernels,
+                              want_argmin=want_argmin))
+        return outs if want_argmin else outs[0]
 
     def batch(self, s, t, bucket: int = 0) -> np.ndarray:
         d = self._run(s, t, bucket, want_argmin=False)
@@ -423,65 +424,52 @@ class DeviceEngine(QueryEngine):
 
     def batch_argmin(self, s, t, bucket: int = 0):
         res = self._run(s, t, bucket, want_argmin=True)
-        if not self.quantized:
-            with obs.span("engine.readback"):
-                # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
-                return tuple(r.cpu().numpy() for r in res)
-        # quantized: 6-tuple — rescue ambiguous-margin rows against the
-        # exact residual so argmin winners match the f32 engine bit for bit
-        # (one flag read decides)
+        out = (self._rescue_flagged(res, s, t, bucket, sync=True)
+               if self.quantized else None)
+        if out is not None:
+            return out
         with obs.span("engine.readback"):
+            # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
+            return tuple(r.cpu().numpy() for r in res[:5])
+
+    def _rescue_flagged(self, res, s, t, bucket: int, sync: bool):
+        """The flag step of a quantized argmin batch ``res``: read its
+        ambiguity flags (one flag read decides; in an ``engine.readback``
+        span where ``sync``, as the synchronous path reads), count its
+        slots, padding included, in ``argmin_rows_total{engine=}``, and
+        return the rescued answers (:meth:`_rescue`), or None where no row
+        is flagged."""
+        read = obs.span("engine.readback") if sync else \
+            contextlib.nullcontext()
+        with read:
             # repolint: disable=hot-path-sync -- documented rescue trigger: one flag word, the exactness contract pays this sync
             amb = res[5].cpu().numpy()
-        self._count_argmin(amb)
-        if not amb.any():
-            with obs.span("engine.readback"):
-                # repolint: disable=hot-path-sync -- batch_argmin is the synchronous API; host results are its contract
-                return tuple(r.cpu().numpy() for r in res[:5])
-        return self._rescue(res, amb, s, t, bucket)
-
-    def _count_argmin(self, amb: np.ndarray) -> None:
-        """A quantized argmin batch joined: its slots, padding included."""
         obs.REGISTRY.counter("argmin_rows_total", engine=self.name).inc(
             len(amb))
+        if not amb.any():
+            return None
+        return self._rescue(res, amb, s, t, bucket)
+
+    def _exact_join(self, s, t, covis, ds, dt) -> tuple:
+        """:func:`exact_join` on the engine's artifact and kernels."""
+        return exact_join(self.index, s, t, covis, ds, dt,
+                          use_kernels=self.use_kernels)
 
     def _rescue(self, res, amb: np.ndarray, s, t, bucket: int) -> tuple:
-        """Splice the exact answers of the ambiguous rows into ``res``
-        (child span ``rescue`` of a sampled request, with
-        ``rescue.residual``, ``rescue.upload``, ``rescue.join`` and
-        ``rescue.splice`` below it).
-
-        Where :meth:`_graphed` holds, the host residual rows are taken as
-        :func:`rescue_exact` takes them, and then, under the graph lock,
-        the endpoints, covis and exact rows are copied into the static
-        inputs of the bucket's rescue graph (:meth:`_rescue_graph`), which
-        is replayed, counted in ``rescue_graph_replays_total{engine=}``,
-        and its five outputs cloned.  The same operations run on the same
-        shapes, so the outputs equal the eager rescue's bit for bit.
-        Elsewhere :func:`rescue_exact` runs them op by op."""
-        width = self.bucket_width(bucket)
+        """Splice the exact answers of the ambiguous rows into ``res``, so
+        that argmin winners equal the f32 engine's bit for bit (child span
+        ``rescue`` of a sampled request, with ``rescue.residual``,
+        ``rescue.upload``, ``rescue.join`` and ``rescue.splice`` below it):
+        the host residual rows (:func:`residual_rows`), then
+        :func:`exact_join` of every row through :meth:`_call`, then the
+        host splice of the flagged ones."""
         with obs.Stopwatch() as sw, obs.span("rescue"):
-            if not self._graphed():
-                # repolint: disable=hot-path-sync -- exact rescue is the sanctioned sync: rescue_exact copies the residual rows to the device (DESIGN.md §11)
-                exact = rescue_exact(self.index, s, t, width, res[1],
-                                     use_kernels=self.use_kernels)
-            else:
-                # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync: the host residual reads the endpoints on the host
-                s, t, ds, dt = residual_rows(self.index, s, t, width)
-                with self._graph_lock:
-                    g = self._rescue_graph(bucket if self.bucketed else 0,
-                                           len(s))
-                    with obs.span("rescue.upload"):
-                        for x, v in zip(g.inputs, (s, t, res[1], ds, dt)):
-                            # repolint: disable=hot-path-sync -- the sanctioned rescue sync: endpoints and exact rows copy from pageable host memory, as rescue_exact's (DESIGN.md §11)
-                            x.copy_(torch.as_tensor(v))
-                    with obs.span("rescue.join"), \
-                            torch.cuda.device(g.s.device):
-                        g.graph.replay()
-                        launches.replay(g.launched)
-                        obs.REGISTRY.counter("rescue_graph_replays_total",
-                                             engine=self.name).inc()
-                        exact = tuple(o.clone() for o in g.outs)
+            # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync: the host residual reads the endpoints on the host
+            s, t, ds, dt = residual_rows(self.index, s, t,
+                                         self.bucket_width(bucket))
+            key = (self._at(bucket), len(s), "rescue")
+            exact = self._call("rescue", key, (s, t, res[1], ds, dt),
+                               self._exact_join)
             with obs.span("rescue.splice"):
                 out = splice_rescue((*res[:5], amb), exact)  # repolint: disable=hot-path-sync -- part of the sanctioned rescue sync above: the host splice reads both answers
         reg = obs.REGISTRY
@@ -563,13 +551,11 @@ class DeviceEngine(QueryEngine):
                 if not want_argmin:
                     res = (res,)
                 elif self.quantized:
-                    # repolint: disable=hot-path-sync -- documented rescue trigger: one flag word, the exactness contract pays this sync
-                    amb = res[5].cpu().numpy()
-                    self._count_argmin(amb)
-                    if amb.any():
+                    out = self._rescue_flagged(res, staged.s, staged.t,
+                                               bucket, sync=False)
+                    if out is not None:
                         slot.busy = False
-                        return Pending(self._rescue(res, amb, staged.s,
-                                                    staged.t, bucket))
+                        return Pending(out)
                     res = res[:5]
                 for o, r in zip(slot.outs, res):
                     o.copy_(r, non_blocking=True)
@@ -584,29 +570,23 @@ class DeviceEngine(QueryEngine):
         """Run every bucket once at the serving batch shape, so the kernels
         are built and loaded, the device allocator has seen the serving
         sizes and the CUDA graphs of those shapes are captured, before live
-        traffic.  On a quantized artifact the argmin warmup also captures
-        each bucket's rescue graph where :meth:`_graphed` holds (its eager
-        run first), and elsewhere runs the rescue's exact gather and join
-        once.  On the card the split-phase path runs too, through
-        ``STAGING_SLOTS`` batches in flight, so the first async batch pays
-        no pinned-buffer or stream setup."""
+        traffic.  On a quantized artifact the argmin warmup also readies
+        each bucket's rescue (:meth:`_prime`: its graph captured where
+        :meth:`_graphed` holds, else one eager run).  On the card the
+        split-phase path runs too, through ``STAGING_SLOTS`` batches in
+        flight, so the first async batch pays no pinned-buffer or stream
+        setup."""
         z = np.zeros((batch_size, 2), np.float32)
-        dev = self.index.device
         for b in range(self.num_buckets):
             self.batch(z, z, b)
             if want_argmin:
                 self.batch_argmin(z, z, b)
-                if self.quantized and self._graphed():
-                    with self._graph_lock:
-                        self._rescue_graph(b, batch_size)
-                elif self.quantized:
-                    zt = torch.zeros((batch_size, 2), dtype=torch.float32,
-                                     device=dev)
-                    d0 = torch.full((batch_size, self.bucket_width(b)),
-                                    float("inf"), dtype=torch.float32,
-                                    device=dev)
-                    self._exact_join(zt, zt, torch.zeros(
-                        batch_size, dtype=torch.bool, device=dev), d0, d0)
+            if want_argmin and self.quantized:
+                d0 = np.full((batch_size, self.bucket_width(b)), np.inf,
+                             np.float32)
+                self._prime("rescue", (self._at(b), batch_size, "rescue"),
+                            (z, z, np.zeros(batch_size, bool), d0, d0),
+                            self._exact_join)
             if self._on_card():
                 for argmin in (False, True) if want_argmin else (False,):
                     pending = [self.dispatch_staged(self.stage(z, z, b), b,

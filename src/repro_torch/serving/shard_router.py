@@ -57,7 +57,7 @@ from repro_torch.core.packed import (TRACES, covis_blocked,
                                      dequant_masked_labels,
                                      gather_masked_exact,
                                      gather_masked_labels, gather_quant_rows,
-                                     join_masked)
+                                     join_masked, locate_cells)
 
 
 def _copy_unpinned(x: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -169,13 +169,10 @@ class ShardRouter:
 
     # ------------------------------------------------------------- routing
     def _cells(self, pts: np.ndarray) -> np.ndarray:
-        """Float32 floor-divide cell location — mirrors ``locate_regions``
-        bit for bit so host routing and device gathers agree."""
-        p = np.asarray(pts, np.float32)  # repolint: disable=hot-path-sync -- host routing math on host inputs, no device value involved
-        cs = np.float32(self.sharded.cell_size)
-        ix = np.clip((p[:, 0] / cs).astype(np.int32), 0, self.sharded.nx - 1)
-        iy = np.clip((p[:, 1] / cs).astype(np.int32), 0, self.sharded.ny - 1)
-        return iy * self.sharded.nx + ix
+        """Cell location (:func:`locate_cells`, ``locate_regions``'s bits)
+        so host routing and device gathers agree."""
+        sh = self.sharded
+        return locate_cells(pts, sh.cell_size, sh.nx, sh.ny)
 
     def route_keys(self, s, t) -> np.ndarray:
         """[B] composite routing keys ``(shard_s, shard_t, width-class)``."""

@@ -476,9 +476,9 @@ COUNTERPARTS = {
     "repro.serving.query_engine:DeviceEngine.batch_argmin":
         ("repro_torch.serving.query_engine:DeviceEngine.batch_argmin",
          "hot-path-sync"),
+    # the port's host routing locates cells with one core helper
     "repro.serving.shard_router:ShardRouter._cells":
-        ("repro_torch.serving.shard_router:ShardRouter._cells",
-         "hot-path-sync"),
+        ("repro_torch.core.packed:locate_cells", "hot-path-sync"),
     "repro.serving.shard_router:ShardRouter.stage":
         ("repro_torch.serving.shard_router:ShardRouter.stage",
          "hot-path-sync"),
@@ -512,9 +512,12 @@ PORT_ONLY = {
      "hot-path-sync"),
     ("repro_torch.serving.shard_router:ShardRouter._slot",
      "hot-path-sync"),
-    # the rescue trigger of the staged path, and the rescue's calls into
-    # core that copy and splice
-    ("repro_torch.serving.query_engine:DeviceEngine.dispatch_staged",
+    # the rescue trigger the sync and staged paths share, the device
+    # calls' copies (the rescue's from pageable memory), and the rescue's
+    # calls into core that read the residual and splice
+    ("repro_torch.serving.query_engine:DeviceEngine._rescue_flagged",
+     "hot-path-sync"),
+    ("repro_torch.serving.query_engine:DeviceEngine._call",
      "hot-path-sync"),
     ("repro_torch.serving.query_engine:DeviceEngine._rescue",
      "hot-path-sync"),

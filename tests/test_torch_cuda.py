@@ -512,12 +512,13 @@ def test_slab_cuda_engine_equals_torch_and_bucketed(card, rooms_s, layout):
 
 
 def _eager_engine(art):
-    """A CudaEngine that runs eagerly: fixed batch shapes off, so no call
-    replays a CUDA graph."""
+    """A CudaEngine that runs eagerly: ``_graphed`` overridden to False, so
+    no call replays a CUDA graph."""
     from repro_torch.serving import CudaEngine
 
     class EagerCudaEngine(CudaEngine):
-        static_shapes = False
+        def _graphed(self):
+            return False
 
     return EagerCudaEngine(art)
 
@@ -565,8 +566,8 @@ def test_dispatch_staged_never_syncs(card, rooms_s, kind, argmin):
     server that samples every request and with the profile capture timing
     every entry by CUDA events, and the results equal the synchronous
     call's: as a CUDA graph's replay (which calls no entry, so queues no
-    timing) and on the eager path of the same engine class (fixed shapes
-    off), which times its entries."""
+    timing) and on the eager path of the same engine class (graphs off),
+    which times its entries."""
     from repro_torch import obs
     from repro_torch.serving import CudaEngine, PathServer
 
@@ -592,7 +593,7 @@ def test_dispatch_staged_never_syncs(card, rooms_s, kind, argmin):
         got = pending.wait()
         replayed = REGISTRY.total("graph_replays_total",
                                   engine=eng.name) - replays
-        if eng.static_shapes:
+        if eng._graphed():
             assert replayed == 1 and cap.drain() == 0
         else:
             assert replayed == 0 and cap.drain() > 0
@@ -607,7 +608,7 @@ def test_profile_times_entries_off_the_hot_path(card, rooms_s):
     CUDA events; ``entry_stream_ms`` appears only once ``drain`` resolves
     them, one sample per call, and the kernel launches add their analytic
     costs (``kernel_cost_*_total``).  The entries run on the eager path
-    of the engine class (fixed shapes off); a replayed CUDA graph calls
+    of the engine class (graphs off); a replayed CUDA graph calls
     none, and adds the kernel costs of the launches it replays."""
     from repro_torch import obs
     from repro_torch.serving import CudaEngine, PathServer

@@ -4,12 +4,14 @@ On a CUDA artifact at fixed batch shapes without an edge grid, a quantized
 ``DeviceEngine`` replays the rescue's exact gather and join as one captured
 graph per (bucket, rows) (``serving.query_engine``).  The CPU tests check
 what runs here: a CPU artifact rescues eagerly and replays nothing, its
-rescued winners equal the f32 engine's bit for bit through the synchronous
-and the split-phase calls, and the engine's locks still pass the port's
-invariant pass.  The ``cuda``-marked tests check the replayed rescue on the
-card against the same engine class run eagerly (``static_shapes`` off), bit
-for bit, over every bucket of rooms-S and of rooms-L at EHL*-20.  This
-module imports no JAX.
+rescue equals ``core.packed.rescue_exact`` spliced, its rescued winners
+equal the f32 engine's bit for bit through the synchronous and the
+split-phase calls, its warmup leaves the counters and shape keys it always
+left, and the engine's locks still pass the port's invariant pass.  The
+``cuda``-marked tests check the replayed rescue on the card against the
+same engine class run eagerly (``_graphed`` overridden to False in a test
+subclass), bit for bit, over every bucket of rooms-S and of rooms-L at
+EHL*-20.  This module imports no JAX.
 """
 
 import os
@@ -23,6 +25,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.compression import compress_to_fraction  # noqa: E402
 from repro_torch.core.grid import build_ehl  # noqa: E402
 from repro_torch.core.maps import make_map  # noqa: E402
+from repro_torch.core import packed  # noqa: E402
 from repro_torch.core.packed import pack_bucketed, slab_layout  # noqa: E402
 from repro_torch.core.visgraph import build_visgraph  # noqa: E402
 from repro_torch.core.workload import uniform_queries  # noqa: E402
@@ -90,6 +93,11 @@ def _flags(eng, sb, tb, key) -> np.ndarray:
     return eng._run(sb, tb, key, True)[5].cpu().numpy()
 
 
+def _rescue_graphs(eng) -> list:
+    """The keys of an engine's rescue graphs."""
+    return [k for k in eng._graphs if k[2] == "rescue"]
+
+
 # ------------------------------------------------------------------ the CPU
 @pytest.mark.parametrize("engine", ["torch", "cuda"])
 def test_cpu_artifact_rescues_eagerly(rooms_s, engine):
@@ -113,7 +121,101 @@ def test_cpu_artifact_rescues_eagerly(rooms_s, engine):
     rescued, replays = _counts(eng.name)
     assert rescued > rescued0
     assert replays == replays0
-    assert eng._rescues == {} and eng._exact_rows == {}
+    assert eng._graphs == {} and eng._exact_rows == {}
+
+
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+def test_cpu_rescue_equals_rescue_exact_spliced(rooms_s, engine):
+    """In every bucket, ``_rescue`` with every row forced equals the
+    reference composition ``splice_rescue(quant, rescue_exact(...))`` bit
+    for bit."""
+    idx, s, t = rooms_s
+    eng = ENGINES[engine](pack_bucketed(idx, layout=slab_layout("bf16"),
+                                        device="cpu"))
+    for key, sb, tb in _batches(eng, s, t, 48):
+        res = eng._run(sb, tb, key, True)
+        every = np.ones(len(sb), bool)
+        want = packed.splice_rescue((*res[:5], every), packed.rescue_exact(
+            eng.index, sb, tb, eng.bucket_width(key), res[1],
+            use_kernels=eng.use_kernels))
+        got = eng._rescue(res, every, sb, tb, key)
+        assert len(got) == 5
+        for name, w, g in zip(ANSWERS, want, got):
+            assert w.dtype == g.dtype, name
+            np.testing.assert_array_equal(w, g, err_msg=name)
+
+
+#: what ``PathServer(eng, batch_size=16).warmup(paths=True)`` leaves on a
+#: CPU rooms-S artifact, as the engine left it before its device calls
+#: shared one executor: the engine's counters that moved, and the
+#: ``TRACES`` keys it saw (each as the ``str`` of its fields)
+WARMUP_COUNTERS = ("graph_replays_total", "graph_eager_calls_total",
+                   "rescue_graph_replays_total", "argmin_rows_total",
+                   "rescue_rows_total", "rescue_batches_total")
+F32 = "SlabLayout(dist='f32', ids='i32')"
+BF16 = "SlabLayout(dist='bf16', ids='u16')"
+WARMUP = {
+    "f32": ({"graph_eager_calls_total": 4}, [
+        ('fold_endpoint', 'cpu', '16', F32, 'bucket', '128', 'torch.float32'),
+        ('fold_endpoint', 'cpu', '16', F32, 'bucket', '256', 'torch.float32'),
+        ('join_endpoints', 'cpu', '16', '128', 'False', 'False'),
+        ('join_endpoints', 'cpu', '16', '128', 'True', 'False'),
+        ('join_endpoints', 'cpu', '16', '256', 'False', 'False'),
+        ('join_endpoints', 'cpu', '16', '256', 'True', 'False'),
+    ]),
+    "bf16": ({"graph_eager_calls_total": 4, "argmin_rows_total": 32}, [
+        ('fold_endpoint', 'cpu', '16',
+         BF16, 'bucket', '128', 'torch.bfloat16'),
+        ('fold_endpoint', 'cpu', '16',
+         BF16, 'bucket', '256', 'torch.bfloat16'),
+        ('gather_masked_exact', 'cpu', '16', '128', BF16, 'False'),
+        ('gather_masked_exact', 'cpu', '16', '256', BF16, 'False'),
+        ('join_endpoints', 'cpu', '16', '128', 'False', 'False'),
+        ('join_endpoints', 'cpu', '16', '128', 'True', 'True'),
+        ('join_endpoints', 'cpu', '16', '256', 'False', 'False'),
+        ('join_endpoints', 'cpu', '16', '256', 'True', 'True'),
+        ('join_masked', 'cpu', '16', '128', 'True', 'False'),
+        ('join_masked', 'cpu', '16', '256', 'True', 'False'),
+    ]),
+    "f32-slab": ({"graph_eager_calls_total": 2}, [
+        ('fold_endpoint', 'cpu', '16', F32, 'slab', '256', 'torch.float32'),
+        ('join_endpoints', 'cpu', '16', '256', 'False', 'False'),
+        ('join_endpoints', 'cpu', '16', '256', 'True', 'False'),
+    ]),
+    "bf16-slab": ({"graph_eager_calls_total": 2, "argmin_rows_total": 16}, [
+        ('fold_endpoint', 'cpu', '16', BF16, 'slab', '256', 'torch.bfloat16'),
+        ('gather_masked_exact', 'cpu', '16', '256', BF16, 'True'),
+        ('join_endpoints', 'cpu', '16', '256', 'False', 'False'),
+        ('join_endpoints', 'cpu', '16', '256', 'True', 'True'),
+        ('join_masked', 'cpu', '16', '256', 'True', 'False'),
+    ]),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(WARMUP))
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+def test_cpu_warmup_counters_and_keys(monkeypatch, rooms_s, engine, kind):
+    """``PathServer.warmup(paths=True)`` on a CPU artifact moves the
+    engine's counters and sees the shape keys it always did: the same
+    eager calls, argmin slots and rescue runs, and nothing replayed."""
+    from repro_torch.serving import PathServer
+
+    idx, _, _ = rooms_s
+    layout, _, packer = kind.partition("-")
+    pack = packed.pack_index if packer else pack_bucketed
+    eng = ENGINES[engine](pack(idx, layout=slab_layout(layout),
+                               device="cpu"))
+    monkeypatch.setattr(packed.TRACES, "_seen", set())
+    monkeypatch.setattr(packed.TRACES, "count", 0)
+    before = [REGISTRY.total(c, engine=eng.name) for c in WARMUP_COUNTERS]
+    PathServer(eng, batch_size=16).warmup(paths=True)
+    moved = {c: b - a for c, a, b in zip(
+        WARMUP_COUNTERS, before,
+        [REGISTRY.total(c, engine=eng.name) for c in WARMUP_COUNTERS])}
+    counters, keys = WARMUP[kind]
+    assert {c: v for c, v in moved.items() if v} == counters
+    assert {tuple(map(str, k)) for k in packed.TRACES._seen} == set(keys)
+    assert packed.TRACES.count == len(keys)
 
 
 @pytest.mark.parametrize("path", ["sync", "staged"])
@@ -182,7 +284,8 @@ def _engines(idx, card, cls=CudaEngine):
     """A graph-replaying engine and an eager one of class ``cls`` on one
     bf16/u16 artifact."""
     class Eager(cls):
-        static_shapes = False
+        def _graphed(self):
+            return False
 
     art = pack_bucketed(idx, layout=slab_layout("bf16"), device=card)
     return cls(art), Eager(art)
@@ -215,7 +318,7 @@ def test_replayed_rescue_equals_eager_bit_for_bit(card, request, monkeypatch,
     assert eng._graphed() and not eager._graphed()
     rows = 256
     eng.warmup(rows, want_argmin=True)
-    assert len(eng._rescues) == eng.num_buckets
+    assert len(_rescue_graphs(eng)) == eng.num_buckets
     seen = _spy(monkeypatch)
     _, replays0 = _counts(eng.name)
     flagged = 0
@@ -289,8 +392,8 @@ def test_warmup_captures_every_rescue_graph(card, rooms_s):
     eng, _ = _engines(idx, card)
     srv = PathServer(eng, batch_size=48)
     srv.warmup(paths=True)
-    assert sorted(eng._rescues) == [(b, 48, "rescue")
-                                    for b in range(eng.num_buckets)]
+    assert sorted(_rescue_graphs(eng)) == [(b, 48, "rescue")
+                                           for b in range(eng.num_buckets)]
     cold = TRACES.count
     _, replays0 = _counts(eng.name)
     srv.query(s, t)
@@ -301,7 +404,7 @@ def test_warmup_captures_every_rescue_graph(card, rooms_s):
     srv.stop_async()
     assert TRACES.count == cold
     assert _counts(eng.name)[1] > replays0
-    assert len(eng._rescues) == eng.num_buckets
+    assert len(_rescue_graphs(eng)) == eng.num_buckets
 
 
 @pytest.mark.cuda

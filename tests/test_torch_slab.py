@@ -236,10 +236,18 @@ def test_engines_and_server_take_the_slab(port_index, queries):
 def test_cell3_location_and_reference_rows(scene_s, graph_s, hl_s):
     """The port locates every cell-3.0 boundary point where its host
     mirrors do and serves every reachable query within 1e-4 of the oracle;
-    its distances equal the reference's (rtol 1e-6) except on
-    ``REF_JIT_LOCATION_ROWS``, where the reference serves +inf."""
+    the host helper ``locate_cells`` finds the cells ``locate_regions``
+    gathers, on the bucketed layout and the single slab; its distances
+    equal the reference's (rtol 1e-6) except on ``REF_JIT_LOCATION_ROWS``,
+    where the reference serves +inf."""
     idx, bx, eng, s, t, truth = case = cell3_case("cpu")
     assert check_cell3(*case) > 0
+    pts = np.concatenate([s, t])
+    for art in (bx, port_packed.pack_index(idx, device="cpu")):
+        cells = port_packed.locate_cells(pts, art.cell_size, art.nx, art.ny)
+        np.testing.assert_array_equal(
+            art.mapper.numpy()[cells],
+            port_packed.locate_regions(art, torch.from_numpy(pts)).numpy())
     ridx = ref_build_ehl(scene_s, cell_size=3.0, graph=graph_s, hl=hl_s)
     ref_compress(ridx, 0.2)
     rbx = ref_packed.pack_bucketed(ridx)
