@@ -36,10 +36,11 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.packed import empty_results, resolve_device
-from repro_torch.core.query import path_length, unwind_path
+from repro_torch.core.query import path_length
 from repro_torch.serving.query_engine import (DeviceEngine, HostEngine,
                                               QueryEngine, make_engine,
                                               replicate_artifact)
+from repro_torch.serving.unwind import chain_table, unwind_path
 
 #: the one ``batch_sharding`` layout: a batch's rows split over the mesh
 BATCH_ROWS = "rows"
@@ -101,6 +102,10 @@ class ServeStats(obs.StatsView):
         "deadline_flushes": ("serve_deadline_flushes_total", int),
         "forced_flushes": ("serve_forced_flushes_total", int),
         "requeued_batches": ("serve_requeued_batches_total", int),
+        # query_paths: rows unwound, and chains walked from the labels
+        # to build a host index's chain table (serving.unwind)
+        "unwind_rows": ("unwind_rows_total", int),
+        "unwind_chain_fills": ("unwind_chain_fills_total", int),
     }
     _GAUGES = {
         # generation the last request was served on; per_bucket restarts
@@ -414,7 +419,11 @@ class PathServer:
         The batched argmin engine identifies each query's winning
         (via_s, hub, via_t) triple; unwinding follows the hub labels'
         next-hop pointers, which live host-side — pass the host
-        ``EHLIndex`` (defaults to a HostEngine's own index).
+        ``EHLIndex`` (defaults to a HostEngine's own index).  Each row
+        not co-visible and reachable goes through the module's
+        ``unwind_path`` (``serving.unwind``: chains from a table per host
+        index, built whole on the index's first request); the stats count
+        those rows and the chains walked from the labels to build tables.
         """
         s = np.asarray(s, np.float32)
         t = np.asarray(t, np.float32)
@@ -435,18 +444,24 @@ class PathServer:
         d, covis, via_s, hub, via_t = self._dispatch(s, t, want_argmin=True,
                                                      trace=trace)
         t_unwind = time.perf_counter()
-        paths = []
         with obs.stage_scope(trace, "unwind", annotate=True):
-            for i in range(len(s)):
-                if covis[i]:
-                    paths.append([s[i].astype(np.float64),
-                                  t[i].astype(np.float64)])
-                elif not np.isfinite(d[i]):
+            fin = np.isfinite(d)
+            rows = int(np.count_nonzero(fin & ~covis))
+            # the index's chain table, built here on its first request
+            fills = chain_table(host_index)[1] if rows else 0
+            paths = []
+            for sp, tp, cv, ok, a, h, b in zip(
+                    list(s.astype(np.float64)), list(t.astype(np.float64)),
+                    covis.tolist(), fin.tolist(), via_s.tolist(),
+                    hub.tolist(), via_t.tolist()):
+                if cv:
+                    paths.append([sp, tp])
+                elif not ok:
                     paths.append([])
                 else:
-                    paths.append(unwind_path(host_index, s[i], t[i],
-                                             int(via_s[i]), int(hub[i]),
-                                             int(via_t[i])))
+                    paths.append(unwind_path(host_index, sp, tp, a, h, b))
+            self.stats.unwind_rows += rows
+            self.stats.unwind_chain_fills += fills
         t1 = time.perf_counter()
         if trace is not None:
             trace.stage("unwind", t1 - t_unwind)
